@@ -1,0 +1,71 @@
+"""Configuration dataclasses of the main path, copied from the JAX package.
+
+Copies of ``vae_hmc_tpu.core.config`` ``MelConfig``, ``ConvMMVaeConfig`` and
+``KMeansConfig`` with their reference citations, so the port never imports
+the JAX package.  Field values are identical; the tests compare them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MelConfig:
+    """Log-mel spectrogram images for the conv VAE (reference scripts/10:14-23)."""
+
+    sample_rate: int = 22050
+    duration_s: float = 15.0       # 10:17 duration=15.0
+    n_fft: int = 2048              # 10:19
+    hop_length: int = 512          # 10:20
+    n_mels: int = 128              # 10:21
+    power: float = 2.0             # 10:22
+    fmin: float = 0.0
+    fmax: Optional[float] = None
+    top_db: float = 80.0           # librosa power_to_db default
+    ref_max: bool = True           # 10:65 power_to_db(S, ref=np.max)
+    per_sample_standardize: bool = True  # 10:69-72
+
+    @property
+    def n_samples(self) -> int:
+        return int(round(self.sample_rate * self.duration_s))
+
+    @property
+    def n_frames(self) -> int:
+        # center=True framing: 1 + n_samples // hop  (librosa stft semantics)
+        return 1 + self.n_samples // self.hop_length
+
+
+@dataclass(frozen=True)
+class ConvMMVaeConfig:
+    """Conv multimodal VAE, medium tier (reference scripts/12:15-23, 12:83-190)."""
+
+    in_mels: int = 128
+    in_frames: int = 646           # 15 s @ hop 512 -> 1 + 330750//512
+    audio_channels: Tuple[int, ...] = (32, 64, 128)  # 12:86-90 stride-2 convs
+    audio_fc_dim: int = 256        # 12:98-103 conv flat -> 256
+    audio_latent_dim: int = 32     # 12:20 latent_dim 32 (mu_a, logvar_a)
+    lyrics_dim: int = 384          # MiniLM embedding width
+    lyrics_hidden: Tuple[int, ...] = (256, 128)  # 12:111-120 projector 384->256->128
+    latent_dim: int = 32           # fused final latent (12:159-166)
+    beta: float = 1.0              # 12:21
+    epochs: int = 25               # 12:18
+    batch_size: int = 64           # 12:17
+    learning_rate: float = 2e-3    # 12:19
+    seed: int = 42
+    loss_reduction: str = "mean"   # 12:262-264 MSE mean + beta*KL mean
+    # Only "float32" is ported: parity with the reference's f32 torch
+    # training is the hard constraint (TF32 is switched off, core.device).
+    compute_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class KMeansConfig:
+    n_clusters: int = 5            # easy: 07:70 k=5; hard uses k=#genres (20:65)
+    n_init: int = 20               # 07:70, 20:68 n_init=20
+    max_iter: int = 300            # sklearn default
+    tol: float = 1e-4              # sklearn default (relative center-shift)
+    seed: int = 42
+    # consumed by the tier pipelines (they scale before calling kmeans);
+    # kmeans() itself takes data as given.
+    standardize: bool = True       # easy: 07:67-68 scales; hard: 20:65-69 does NOT

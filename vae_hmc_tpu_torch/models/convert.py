@@ -1,0 +1,59 @@
+"""Carry Flax ConvMMVAE weights across into the torch ``ConvMMVAE``.
+
+The inverse of ``vae_hmc_tpu.models.torch_port`` (linear, conv2d,
+conv_transpose2d and the NCHW-flatten seams), written here so the port
+does not import the JAX package.  Every mapping is a transpose or a
+permutation, so it maps gradients the same way:
+  - Dense kernel (in, out)                 -> Linear weight (out, in);
+  - Conv kernel (kh, kw, in, out)          -> Conv2d weight (out, in, kh, kw);
+  - ConvTranspose kernel (kh, kw, in, out) -> ConvTranspose2d weight
+    (in, out, kh, kw) with BOTH spatial axes flipped (torch's transposed
+    conv is the gradient of a correlation, lax's a fractionally strided
+    correlation);
+  - ``enc_fc`` rows and ``dec_fc2`` columns and bias reordered from the
+    Flax NHWC flatten (H, W, C) to torch's NCHW flatten (C, H, W).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+Params = Dict[str, Dict[str, np.ndarray]]
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def conv_mm_vae_state_dict(params: Params, enc_hw: Tuple[int, int],
+                           channels: Tuple[int, ...] = (32, 64, 128)
+                           ) -> Dict[str, torch.Tensor]:
+    """Flax ``params`` (``{"enc_conv1": {"kernel", "bias"}, ...}``, the tree
+    under ``"params"``, as numpy) -> ``ConvMMVAE`` state_dict."""
+    eh, ew = enc_hw
+    c = channels[-1]
+    sd = {}
+    for i in range(len(channels)):
+        p = params[f"enc_conv{i + 1}"]
+        sd[f"enc_convs.{i}.weight"] = _t(p["kernel"].transpose(3, 2, 0, 1))
+        sd[f"enc_convs.{i}.bias"] = _t(p["bias"])
+        p = params[f"dec_conv{i + 1}"]
+        sd[f"dec_convs.{i}.weight"] = _t(
+            p["kernel"][::-1, ::-1].transpose(2, 3, 0, 1))
+        sd[f"dec_convs.{i}.bias"] = _t(p["bias"])
+    for name in ("mu_a", "logvar_a", "lyr1", "lyr2", "fuse", "mu", "logvar",
+                 "dec_fc1"):
+        sd[f"{name}.weight"] = _t(params[name]["kernel"].T)
+        sd[f"{name}.bias"] = _t(params[name]["bias"])
+    k = params["enc_fc"]["kernel"]                       # (H*W*C, out)
+    sd["enc_fc.weight"] = _t(k.reshape(eh, ew, c, -1).transpose(3, 2, 0, 1)
+                             .reshape(k.shape[1], -1))
+    sd["enc_fc.bias"] = _t(params["enc_fc"]["bias"])
+    k = params["dec_fc2"]["kernel"]                      # (in, H*W*C)
+    sd["dec_fc2.weight"] = _t(k.reshape(-1, eh, ew, c).transpose(3, 1, 2, 0)
+                              .reshape(-1, k.shape[0]))
+    b = params["dec_fc2"]["bias"]
+    sd["dec_fc2.bias"] = _t(b.reshape(eh, ew, c).transpose(2, 0, 1).reshape(-1))
+    return sd

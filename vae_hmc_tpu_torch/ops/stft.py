@@ -1,0 +1,74 @@
+"""Batched power spectrogram (port of ``vae_hmc_tpu.ops.stft``).
+
+librosa stft semantics: center=True reflect padding, periodic Hann window
+of n_fft.  The rDFT is two plain fp32 matmuls against a cos/sin basis, as
+the JAX package computes it (``method="dft"``); they go to cuBLAS with TF32
+off (core.device), the analogue of the reference's ``Precision.HIGHEST``.
+
+(B, n_samples) in, (B, 1 + n_fft//2, n_frames) out, contiguous.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def hann_window(n: int, device=None) -> torch.Tensor:
+    """Periodic Hann (scipy.signal.get_window('hann', n, fftbins=True)),
+    computed in float64 and rounded once, as the JAX package does."""
+    k = torch.arange(n, dtype=torch.float64)
+    w = 0.5 - 0.5 * torch.cos(2.0 * math.pi * k / n)
+    return w.to(device=device, dtype=torch.float32)
+
+
+def frame_signal(y: torch.Tensor, n_fft: int,
+                 hop_length: int) -> torch.Tensor:
+    """(B, L) -> (B, T, n_fft) frames, librosa center=True semantics:
+    T = 1 + L // hop."""
+    if y.ndim != 2:
+        raise ValueError(f"expected (batch, samples), got {tuple(y.shape)}")
+    if n_fft % hop_length:
+        raise ValueError(f"hop_length {hop_length} must divide n_fft {n_fft}")
+    t = 1 + y.shape[1] // hop_length
+    pad = n_fft // 2
+    # reflect padding needs a (N, C, L) view
+    y = F.pad(y[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
+    # slice framing: frame t is r = n_fft/hop consecutive hop-blocks
+    r = n_fft // hop_length
+    need = (t - 1) * hop_length + n_fft
+    blocks = y[:, :need].reshape(y.shape[0], need // hop_length, hop_length)
+    return torch.cat([blocks[:, i:i + t, :] for i in range(r)], dim=2)
+
+
+def dft_matrices(n_fft: int, device=None):
+    """(n_fft, F) cos and sin rDFT bases, F = n_fft//2 + 1.
+
+    The angle is reduced mod n_fft in integer arithmetic before the float
+    multiply (t*f <= n_fft^2/2 is exact), so cos/sin never see a large
+    argument and the basis does not drift."""
+    t = torch.arange(n_fft, dtype=torch.int64, device=device)[:, None]
+    f = torch.arange(n_fft // 2 + 1, dtype=torch.int64, device=device)[None, :]
+    tf = (t * f) % n_fft
+    ang = tf.to(torch.float32) * torch.tensor(2.0 * math.pi / n_fft,
+                                              dtype=torch.float32,
+                                              device=device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def power_spectrogram(y: torch.Tensor, n_fft: int = 2048,
+                      hop_length: int = 512,
+                      power: float = 2.0) -> torch.Tensor:
+    """(B, L) waveforms -> (B, 1 + n_fft//2, T) |STFT|^power, contiguous."""
+    frames = frame_signal(y, n_fft, hop_length)
+    frames = frames * hann_window(n_fft, y.device)
+    cos_m, sin_m = dft_matrices(n_fft, y.device)
+    re = torch.matmul(frames, cos_m)                           # (B, T, F)
+    im = torch.matmul(frames, sin_m)
+    mag = re * re + im * im
+    if power == 1.0:
+        mag = torch.sqrt(mag)
+    elif power != 2.0:
+        mag = mag ** (power / 2.0)
+    return mag.transpose(1, 2).contiguous()                    # (B, F, T)
