@@ -7,7 +7,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   1. identify the card and build the CUDA kernels from ``csrc/`` with nvcc;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at ragged ones, and time kernel, plain version
-     and a PyTorch library yardstick with CUDA events;
+     and a PyTorch library yardstick (CUDA graph replays, CUDA events);
   3. run the main path once at full model width (``run_core``: 1,024
      synthetic 15 s tracks -> (128, 646) log-mel -> full ConvMMVAE, 2 epochs
      at batch 64 = 32 Adam steps -> KMeans(k=6, n_init=10) -> silhouette,
@@ -63,16 +63,26 @@ def check_close(what: str, got, want, atol: float, rtol: float = 0.0) -> float:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over `reps` calls, CUDA events, after warm-up."""
+    """Mean device time of fn() over `reps` calls, CUDA events around one
+    replay of a CUDA graph that holds the `reps` calls, after warm-up: the
+    host's launch cost drops out, which matters for calls of microseconds."""
     import torch
-    for _ in range(warmup):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -82,6 +92,14 @@ def bound(bytes_moved: float, flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dist_bound(n: int, m: int, d: int, self_dist: bool):
+    """Bound of the (n, d) x (m, d) distances.  For y = x, x is read once and
+    the symmetric output needs only the n(n+1)/2 dot products with i <= j."""
+    if self_dist:
+        return bound(4.0 * (n * d + n * n), 1.0 * n * (n + 1) * d)
+    return bound(4.0 * (n * d + m * d + n * m), 2.0 * n * m * d)
 
 
 def phase_identify_and_build():
@@ -135,7 +153,8 @@ def phase_logmel(dev) -> dict:
     for what, cfg, b, kw, atol in cases:
         spec = _spectrogram(b, cfg, dev)
         fb = mel_ops.mel_filterbank_tensor(cfg, dev)
-        got = mel_db_standardize(spec, fb, **kw)
+        bands = mel_ops.filterbank_bands_tensor(cfg, dev)
+        got = mel_db_standardize(spec, fb, bands=bands, **kw)
         want = mel_db_standardize_plain(spec, fb, **kw)
         torch.cuda.synchronize()
         err = check_close(what, got, want, atol)
@@ -145,11 +164,13 @@ def phase_logmel(dev) -> dict:
     cfg = MelConfig()
     spec = _spectrogram(DEVICE_BATCH, cfg, dev)
     fb = mel_ops.mel_filterbank_tensor(cfg, dev)
+    bands = mel_ops.filterbank_bands_tensor(cfg, dev)
     kw = dict(top_db=mel_ops.effective_top_db(cfg), standardize=True)
     max_err = max(max_err, check_close(
-        f"B={DEVICE_BATCH} main-path batch", mel_db_standardize(spec, fb, **kw),
+        f"B={DEVICE_BATCH} main-path batch",
+        mel_db_standardize(spec, fb, bands=bands, **kw),
         mel_db_standardize_plain(spec, fb, **kw), 1e-4))
-    ms = time_ms(lambda: mel_db_standardize(spec, fb, **kw))
+    ms = time_ms(lambda: mel_db_standardize(spec, fb, bands=bands, **kw))
     plain_ms = time_ms(lambda: mel_db_standardize_plain(spec, fb, **kw))
     # yardstick: cuBLAS matmul(fb, spec) plus torch ops for dB and
     # standardize (no single PyTorch call computes this function)
@@ -159,7 +180,7 @@ def phase_logmel(dev) -> dict:
     b, f, t = spec.shape
     m = fb.shape[0]
     nnz = int((fb != 0).sum())
-    bytes_moved = 4.0 * (b * f * t + m * f + b * m * t)
+    bytes_moved = 4.0 * (b * f * t + m * f + 2 * m + b * m * t)
     flops_needed = 2.0 * nnz * b * t           # the filterbank's nonzeros
     bound_ms, bound_by = bound(bytes_moved, flops_needed)
     log(f"  timing at ({b}, {f}, {t}) x ({m}, {f}): kernel {ms:.4f} ms, "
@@ -207,15 +228,14 @@ def phase_distance(dev) -> dict:
     plain_ms = time_ms(lambda: pairwise_dists_plain(x), reps=200)
     library_ms = time_ms(lambda: torch.cdist(x, x), reps=200)
     n, d = x.shape
-    bound_ms, bound_by = bound(4.0 * (2 * n * d + n * n), 2.0 * n * n * d)
-    log(f"  timing at ({n}, {d}) self: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.cdist {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms by {bound_by}")
+    bound_ms, bound_by = dist_bound(n, n, d, self_dist=True)
+    log(f"  timing at ({n}, {d}) self: kernel {ms:.5f} ms, plain "
+        f"{plain_ms:.5f} ms, torch.cdist {library_ms:.5f} ms, bound "
+        f"{bound_ms:.5f} ms by {bound_by}")
     xf = centred(256, 82688)
     flat_ms = time_ms(lambda: pairwise_dists(xf), reps=10)
     flat_plain = time_ms(lambda: pairwise_dists_plain(xf), reps=10)
-    flat_bound, flat_by = bound(4.0 * (2 * 256 * 82688 + 256 * 256),
-                                2.0 * 256 * 256 * 82688)
+    flat_bound, flat_by = dist_bound(256, 256, 82688, self_dist=True)
     log(f"  timing at (256, 82688) self: kernel {flat_ms:.4f} ms, plain "
         f"{flat_plain:.4f} ms, bound {flat_bound:.4f} ms by {flat_by}")
     return {"name": "pairwise_dists", "route": "cuda",

@@ -79,6 +79,31 @@ def test_silhouette_and_dbi_match_jax(case):
         jint.davies_bouldin(x, labels), rtol=0, atol=5e-4, err_msg=what)
 
 
+def test_silhouette_and_dbi_match_jax_at_mel_flat_width():
+    """At the mel-flat width (d = 82,688) the JAX distances keep the f32
+    cancellation residue of |x|^2 + |x|^2 - 2 x.x on the self-distance
+    diagonal; the port sets it to exactly 0 (sklearn's convention).  The
+    gap on the diagonal is stated here (under 1 against distances of ~500),
+    and it moves silhouette by ~1e-5: both metrics stay within 5e-4."""
+    rng = np.random.default_rng(13)
+    n, d, k = 64, 82688, 4
+    labels = np.arange(n) % k
+    x = (rng.normal(0, 1, (k, d))[labels]
+         + rng.normal(0, 1, (n, d))).astype(np.float32)
+    xc = x - x.mean(axis=0)
+    ref_d = np.sqrt(np.asarray(jint.pairwise_sq_dists(xc)))
+    ours_d = internal.pairwise_dists(torch.from_numpy(xc)).numpy()
+    off = ~np.eye(n, dtype=bool)
+    np.testing.assert_allclose(ours_d[off], ref_d[off], rtol=1e-4, atol=1e-2)
+    assert np.count_nonzero(np.diagonal(ours_d)) == 0
+    assert np.diagonal(ref_d).max() < 1.0 < ref_d[off].min()
+    np.testing.assert_allclose(internal.silhouette(x, labels, device="cpu"),
+                               jint.silhouette(x, labels), rtol=0, atol=5e-4)
+    np.testing.assert_allclose(
+        internal.davies_bouldin(x, labels, device="cpu"),
+        jint.davies_bouldin(x, labels), rtol=0, atol=5e-4)
+
+
 def test_metrics_reject_degenerate_labels():
     x = np.zeros((5, 3), np.float32)
     with pytest.raises(ValueError):

@@ -37,14 +37,19 @@ def test_logmel_kernel_matches_plain(gpu):
                          .astype(np.float32)).to(gpu)
     spec = tstft.power_spectrogram(y)
     fb = tmel.mel_filterbank_tensor(cfg, gpu)
+    bands = tmel.filterbank_bands_tensor(cfg, gpu)
     for top_db, standardize, atol in ((80.0, True, 1e-4), (None, False, 1e-3)):
         before = build.launch_counts()["mel_db_standardize"]
         got = mel_db_standardize(spec, fb, top_db=top_db,
-                                 standardize=standardize)
+                                 standardize=standardize, bands=bands)
         assert build.launch_counts()["mel_db_standardize"] == before + 1
         want = mel_db_standardize_plain(spec, fb, top_db=top_db,
                                         standardize=standardize)
         torch.testing.assert_close(got, want, rtol=0, atol=atol)
+        # bands derived from fb on the host when not given
+        torch.testing.assert_close(
+            mel_db_standardize(spec, fb, top_db=top_db,
+                               standardize=standardize), got, rtol=0, atol=0)
 
 
 def test_distance_kernel_matches_plain(gpu):

@@ -40,6 +40,31 @@ def test_filterbank_identical():
                                       jmel.mel_filterbank(sr, n_fft, n_mels))
 
 
+@pytest.mark.parametrize("n_mels,tile", [(128, 32), (32, 32), (128, 16)])
+def test_filterbank_bands_cover_every_nonzero(n_mels, tile):
+    """Kernel 1 sums each row tile over the union of its rows' bands; that
+    sum equals the dense product, and the bands hold each row's nonzeros
+    exactly."""
+    fb = tmel.mel_filterbank(22050, 2048, n_mels)
+    bands = tmel.filterbank_bands(fb)
+    assert bands.dtype == np.int32 and bands.shape == (n_mels, 2)
+    for row, (lo, hi) in zip(fb, bands):
+        nz = np.flatnonzero(row)
+        assert (lo, hi) == (nz[0], nz[-1] + 1)
+    spec = np.random.default_rng(n_mels).random((1025, 7))
+    for m0 in range(0, n_mels, tile):
+        lo = bands[m0:m0 + tile, 0].min()
+        hi = bands[m0:m0 + tile, 1].max()
+        np.testing.assert_allclose(fb[m0:m0 + tile, lo:hi] @ spec[lo:hi],
+                                   fb[m0:m0 + tile] @ spec, rtol=1e-12)
+    empty = np.zeros((2, 5), np.float32)
+    empty[1, 2] = 1.0
+    np.testing.assert_array_equal(tmel.filterbank_bands(empty),
+                                  [[5, 0], [2, 3]])
+    cached = tmel.filterbank_bands_tensor(MelConfig(n_mels=n_mels), "cpu")
+    np.testing.assert_array_equal(cached.numpy(), bands)
+
+
 def test_power_spectrogram_matches_jax():
     y = _signals(2, 0.5, seed=1)
     ours = tstft.power_spectrogram(torch.from_numpy(y)).numpy()

@@ -16,11 +16,12 @@
 //
 // Design.  The Pallas kernel holds a whole (F, T) sample (2.6 MB) in VMEM;
 // a Hopper block has at most 227 KB of shared memory, so the work is split:
-//   pass 0 (fb_bands): for each 32-row tile of the filterbank, the range of
-//     frequency bins with a nonzero weight (the Slaney bands are narrow:
-//     the four tiles of the 128-mel bank span 26% of the dense K work).
 //   pass 1 (mel_gemm): a tiled fp32 GEMM, 32x64 output tiles per block,
-//     looping over its tile's band only, streamed through shared memory in
+//     looping only over the frequency bins where some row of its tile has
+//     a nonzero weight (the caller passes each filterbank row's band,
+//     computed once on the host; the Slaney bands are narrow: the four
+//     tiles of the 128-mel bank span 26% of the dense K work), streamed
+//     through shared memory in
 //     chunks of 16 bins, 2x4 outputs per thread, IEEE fmaf (no TF32:
 //     tensor-core TF32 would break parity with the reference's
 //     Precision.HIGHEST).  It writes mel into `out`.
@@ -47,43 +48,15 @@ constexpr int BK = 16;     // frequency bins per shared-memory chunk
 constexpr int TM = 2;      // rows per thread
 constexpr int TN = 4;      // columns per thread
 constexpr int GEMM_THREADS = (BM / TM) * (BN / TN);   // 256
-constexpr int BAND_THREADS = 256;
 constexpr int NORM_THREADS = 1024;
 
 // 10 / ln(10): dB = C * ln(x), as the Pallas kernel writes it
 constexpr float DB_SCALE = 4.342944819032518f;
 constexpr float AMIN = 1e-10f;
 
-// For each BM-row tile of the filterbank, the half-open range [lo, hi) of
-// frequency bins holding a nonzero weight in any of its rows (lo = F,
-// hi = 0 for an all-zero tile).  One block per tile.
-__global__ void __launch_bounds__(BAND_THREADS)
-fb_bands(const float* __restrict__ fb, int* __restrict__ bands, int M, int F) {
-  __shared__ int lo_s, hi_s;
-  if (threadIdx.x == 0) { lo_s = F; hi_s = 0; }
-  __syncthreads();
-  const int m0 = blockIdx.x * BM;
-  int lo = F, hi = 0;
-  for (int k = threadIdx.x; k < F; k += blockDim.x) {
-    for (int m = m0; m < min(m0 + BM, M); ++m) {
-      if (fb[(size_t)m * F + k] != 0.f) {
-        lo = min(lo, k);
-        hi = max(hi, k + 1);
-        break;
-      }
-    }
-  }
-  atomicMin(&lo_s, lo);
-  atomicMax(&hi_s, hi);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    bands[2 * blockIdx.x] = lo_s;
-    bands[2 * blockIdx.x + 1] = hi_s;
-  }
-}
-
 // mel[b] (M, T) = fb (M, F) @ spec[b] (F, T), summing only over the tile's
-// band: the skipped bins have weight 0 in every row of the tile, so the sum
+// band, the union of its rows' bands [bands[2m], bands[2m+1]) of nonzero
+// bins: the skipped bins have weight 0 in every row of the tile, so the sum
 // equals the dense one (for finite spec; a non-finite frame still reaches
 // the bins that are summed, so the sample's features stay non-finite).
 __global__ void __launch_bounds__(GEMM_THREADS)
@@ -101,8 +74,12 @@ mel_gemm(const float* __restrict__ fb, const float* __restrict__ spec,
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);
   const int ty = tid / (BN / TN);
-  const int k_lo = (bands[2 * blockIdx.y] / BK) * BK;
-  const int k_hi = bands[2 * blockIdx.y + 1];
+  int k_lo = F, k_hi = 0;       // every thread reads the same few words
+  for (int m = m0; m < min(m0 + BM, M); ++m) {
+    k_lo = min(k_lo, bands[2 * m]);
+    k_hi = max(k_hi, bands[2 * m + 1]);
+  }
+  k_lo = (k_lo / BK) * BK;
 
   float acc[TM][TN];
 #pragma unroll
@@ -253,26 +230,21 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// spec (B, F, T), fb (M, F), out (B, M, T): float32; bands: int32 scratch
-// of 2*M entries; all contiguous, on the device of `stream`.  Returns the
-// cudaError_t of the launches (0 = ok).
+// spec (B, F, T), fb (M, F), out (B, M, T): float32; bands (M, 2): int32,
+// each fb row's [lo, hi) of nonzero bins; all contiguous, on the device of
+// `stream`.  Returns the cudaError_t of the launches (0 = ok).
 extern "C" int mel_db_standardize(const void* spec, const void* fb,
-                                  void* bands, void* out, int B, int M, int F,
-                                  int T, int ref_max, int use_top_db,
+                                  const void* bands, void* out, int B, int M,
+                                  int F, int T, int ref_max, int use_top_db,
                                   float top_db, int standardize, float eps,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int m_tiles = (M + BM - 1) / BM;
-  fb_bands<<<m_tiles, BAND_THREADS, 0, s>>>(static_cast<const float*>(fb),
-                                            static_cast<int*>(bands), M, F);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + BN - 1) / BN, m_tiles, B);
+  const dim3 grid((T + BN - 1) / BN, (M + BM - 1) / BM, B);
   mel_gemm<<<grid, GEMM_THREADS, 0, s>>>(static_cast<const float*>(fb),
                                           static_cast<const float*>(spec),
                                           static_cast<const int*>(bands),
                                           static_cast<float*>(out), M, F, T);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   db_standardize<<<B, NORM_THREADS, 0, s>>>(static_cast<float*>(out), M * T,
                                             ref_max, use_top_db, top_db,

@@ -37,11 +37,15 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
 
 def mel_db_standardize(spec: torch.Tensor, fb: torch.Tensor, *,
                        ref_max: bool = True, top_db: Optional[float] = None,
-                       standardize: bool = True,
-                       eps: float = 1e-6) -> torch.Tensor:
+                       standardize: bool = True, eps: float = 1e-6,
+                       bands: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, F, T) power spectrogram x (M, F) filterbank -> (B, M, T) features.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    `bands` is ``mel_ops.filterbank_bands`` of fb, int32 (M, 2) on fb's
+    device (``mel_ops.filterbank_bands_tensor`` caches it per config); the
+    kernel sums only over those bins.  Left out, it is derived from fb
+    through a host copy.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     if spec.device.type == "cpu":
         return mel_db_standardize_plain(spec, fb, ref_max=ref_max,
                                         top_db=top_db,
@@ -61,8 +65,14 @@ def mel_db_standardize(spec: torch.Tensor, fb: torch.Tensor, *,
     out = torch.empty((b, m, t), dtype=torch.float32, device=spec.device)
     if b == 0:
         return out
-    # per row tile of fb, its nonzero frequency band (filled by the kernel)
-    bands = torch.empty((2 * m,), dtype=torch.int32, device=spec.device)
+    if bands is None:
+        bands = torch.from_numpy(mel_ops.filterbank_bands(
+            fb.cpu().numpy())).to(spec.device)
+    if (bands.device != spec.device or bands.dtype != torch.int32
+            or tuple(bands.shape) != (m, 2) or not bands.is_contiguous()):
+        raise ValueError(f"bands {tuple(bands.shape)} {bands.dtype} on "
+                         f"{bands.device}: want contiguous int32 ({m}, 2) "
+                         f"on {spec.device}")
     lib = build.library("logmel")
     fn = lib.mel_db_standardize
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
@@ -83,6 +93,8 @@ def logmel_standardized(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     spec = power_spectrogram(y, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
                              power=cfg.power)
     fb = mel_ops.mel_filterbank_tensor(cfg, y.device)
+    bands = mel_ops.filterbank_bands_tensor(cfg, y.device)
     return mel_db_standardize(spec, fb, ref_max=cfg.ref_max,
                               top_db=mel_ops.effective_top_db(cfg),
-                              standardize=cfg.per_sample_standardize)
+                              standardize=cfg.per_sample_standardize,
+                              bands=bands)

@@ -8,6 +8,7 @@ per-sample ref=max and top_db floor, per-sample standardization.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -76,9 +77,35 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int = 128, fmin: float = 0.0,
     return weights.astype(dtype)
 
 
+def filterbank_bands(fb: np.ndarray) -> np.ndarray:
+    """(n_mels, 2) int32: each row's half-open range [lo, hi) of frequency
+    bins with a nonzero weight ([n_freq, 0) for an all-zero row).  Kernel 1
+    sums only over these bins."""
+    nz = fb != 0
+    any_nz = nz.any(axis=1)
+    lo = np.where(any_nz, np.argmax(nz, axis=1), fb.shape[1])
+    hi = np.where(any_nz, fb.shape[1] - np.argmax(nz[:, ::-1], axis=1), 0)
+    return np.stack([lo, hi], axis=1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _filterbank_and_bands(sr: int, n_fft: int, n_mels: int, fmin: float,
+                          fmax: Optional[float]):
+    fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
+    return fb, filterbank_bands(fb)
+
+
 def mel_filterbank_tensor(cfg: MelConfig, device) -> torch.Tensor:
-    return torch.from_numpy(mel_filterbank(
-        cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)).to(device)
+    fb, _ = _filterbank_and_bands(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
+                                  cfg.fmin, cfg.fmax)
+    return torch.tensor(fb, device=device)
+
+
+def filterbank_bands_tensor(cfg: MelConfig, device) -> torch.Tensor:
+    """``filterbank_bands`` of the config's filterbank, on `device`."""
+    _, bands = _filterbank_and_bands(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
+                                     cfg.fmin, cfg.fmax)
+    return torch.tensor(bands, device=device)
 
 
 def effective_top_db(cfg: MelConfig) -> Optional[float]:

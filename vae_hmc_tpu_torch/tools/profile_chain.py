@@ -1,39 +1,31 @@
 """Where the main path's time goes on the GPU.
 
-    python -m vae_hmc_tpu_torch.tools.profile_chain [--n-tracks 1024] [--epochs 2]
-    python -m vae_hmc_tpu_torch.tools.profile_chain --cold
+    python -m vae_hmc_tpu_torch.tools.profile_chain
 
-Runs ``run_core`` once to warm up (library loads, cuDNN heuristics, the
-kernels' build), then again under ``torch.profiler`` with CPU and CUDA
-activity; with ``--cold`` it profiles the first run of the process
-instead, and times nothing before it.  It prints for the profiled run: the
-stage seconds; host ops by self time; each stage's
-device time (the kernels launched inside its ``stage:*`` range); the
-device's busy time and idle share over the run; device time by kernel; and,
-timed apart before any of that, the one-time cost of the first CUDA, cuBLAS
-and cuDNN calls of the process and the host cost of building the
-full-width model and moving it to the card.  Needs a GPU.
+Runs ``run_core`` (1,024 tracks, 2 epochs) once to warm up (library
+loads, cuDNN heuristics, the kernels' build, the first optimizer's
+imports) and prints its stage seconds, the cold ones; then runs it again
+under ``torch.profiler`` with CPU and CUDA activity and prints, for that
+warm run: the stage seconds; host ops by self time; each stage's device
+time (the kernels launched inside its ``stage:*`` range); the device's busy
+time and idle share over the run; and device time by kernel.  Needs a GPU.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
-import time
 
-import torch
-import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig
 from vae_hmc_tpu_torch.core.device import resolve_device
-from vae_hmc_tpu_torch.models.api import build_conv_mm_vae
 from vae_hmc_tpu_torch.pipelines.bench_chain import run_core
 
+N_TRACKS = 1024
+EPOCHS = 2
+TOP = 25                     # rows of each ranking
 # device functions of csrc/logmel.cu and csrc/distance.cu
-PORT_KERNELS = ("fb_bands", "mel_gemm", "db_standardize", "row_sqnorm",
-                "pairwise_tile")
+PORT_KERNELS = ("mel_gemm", "db_standardize", "row_sqnorm", "pairwise_tile")
 STAGE_KEYS = ("seconds_features", "seconds_lyrics", "seconds_train",
               "seconds_cluster_metrics", "seconds_total")
 
@@ -49,105 +41,17 @@ def _union_us(intervals, lo=float("-inf"), hi=float("inf")) -> float:
     return total
 
 
-def _first_use_seconds(dev) -> dict:
-    """Wall seconds of each library's first call in this process, each
-    synchronized: the one-time start-up a cold run pays."""
-    out = {}
-
-    def timed(name, fn):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize(dev)
-        out[name] = time.perf_counter() - t0
-
-    timed("cuda_context", lambda: torch.zeros(1, device=dev))
-    # the first optimizer of a process imports torch._dynamo/_inductor
-    timed("torch_optim_first_adam",
-          lambda: torch.optim.Adam([torch.zeros(1, requires_grad=True)]))
-    a = torch.ones((256, 256), device=dev)
-    timed("cublas_matmul", lambda: a @ a)
-    x = torch.ones((2, 1, 128, 646), device=dev, requires_grad=True)
-    w = torch.ones((32, 1, 3, 3), device=dev, requires_grad=True)
-    timed("cudnn_conv_forward",
-          lambda: F.conv2d(x, w, stride=2, padding=1))
-    timed("cudnn_conv_backward",
-          lambda: F.conv2d(x, w, stride=2, padding=1).sum().backward())
-    x2 = torch.ones((2, 64, 32, 162), device=dev, requires_grad=True)
-    w2 = torch.ones((128, 64, 3, 3), device=dev, requires_grad=True)
-    timed("cudnn_conv_new_shape_fwd_bwd",
-          lambda: F.conv2d(x2, w2, stride=2, padding=1).sum().backward())
-    x3 = torch.ones((2, 128, 16, 81), device=dev, requires_grad=True)
-    w3 = torch.ones((128, 64, 4, 4), device=dev, requires_grad=True)
-    timed("cudnn_conv_transpose_fwd_bwd",
-          lambda: F.conv_transpose2d(x3, w3, stride=2,
-                                     padding=1).sum().backward())
-    return out
-
-
-def _step_seconds(model, dev, steps: int = 3) -> list:
-    """Forward / backward / Adam wall seconds of the first training steps
-    at the main path's batch (64 x (128, 646)), each part synchronized."""
-    opt = torch.optim.Adam(model.parameters(), lr=2e-3)
-    x = torch.randn((64, 128, 646, 1), device=dev)
-    lyr = torch.randn((64, 384), device=dev)
-    m = torch.ones((64, 1), device=dev)
-    out = []
-    for _ in range(steps):
-        t = [time.perf_counter()]
-        xhat, mu, logvar = model(x, lyr, m)
-        loss = torch.mean((xhat - x) ** 2) - 0.5 * torch.mean(
-            1.0 + logvar - mu ** 2 - torch.exp(logvar))
-        torch.cuda.synchronize(dev)
-        t.append(time.perf_counter())
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        torch.cuda.synchronize(dev)
-        t.append(time.perf_counter())
-        opt.step()
-        torch.cuda.synchronize(dev)
-        t.append(time.perf_counter())
-        out.append({k: round(b - a, 4) for k, a, b in
-                    zip(("forward", "backward", "adam"), t, t[1:])})
-    return out
-
-
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n-tracks", type=int, default=1024)
-    ap.add_argument("--epochs", type=int, default=2)
-    ap.add_argument("--top", type=int, default=25)
-    ap.add_argument("--cold", action="store_true",
-                    help="profile the process's first run (no warm-up)")
-    args = ap.parse_args()
     dev = resolve_device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip())
-    if not args.cold:
-        _warm_up(dev, args)
+    cold = run_core(n_tracks=N_TRACKS, epochs=EPOCHS, device=dev)
+    print("warm-up (cold) run:", json.dumps({k: cold[k] for k in STAGE_KEYS}))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        res = run_core(n_tracks=args.n_tracks, epochs=args.epochs,
-                       device=dev)
-    _report(prof, res, args.top)
-
-
-def _warm_up(dev, args) -> None:
-    first = _first_use_seconds(dev)
-    print("first use (s):", json.dumps(first))
-    t0 = time.perf_counter()
-    model = build_conv_mm_vae(ConvMMVaeConfig(), 128, 646, 384)
-    t1 = time.perf_counter()
-    model.to(dev)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    print(f"model build on host {t1 - t0:.3f} s, to device {t2 - t1:.3f} s "
-          f"({sum(p.numel() for p in model.parameters())} parameters)")
-    print("first training steps (s):", json.dumps(_step_seconds(model, dev)))
-    del model
-
-    warm = run_core(n_tracks=args.n_tracks, epochs=args.epochs, device=dev)
-    print("warm-up run:", json.dumps({k: warm[k] for k in STAGE_KEYS}))
+        res = run_core(n_tracks=N_TRACKS, epochs=EPOCHS, device=dev)
+    _report(prof, res, TOP)
 
 
 def _report(prof, res, top: int) -> None:
