@@ -4,9 +4,12 @@
     python3 chip_smoke.py          # from the repository root, on a CUDA machine
 
 Phases (any failure exits non-zero; no phase catches its own failure):
-  1. identify the card and build the CUDA kernels from ``csrc/`` with nvcc;
+  1. identify the card and build the CUDA kernels from ``csrc/`` with nvcc
+     (registers and spills from ptxas);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at ragged ones, and time kernel, plain version
+     main path's shapes and at ragged ones, check that a NaN sample stays
+     non-finite through kernel 1 and that kernel 2's split-K result repeats
+     bit for bit, count launches per call, and time kernel, plain version
      and a PyTorch library yardstick (CUDA graph replays, CUDA events);
   3. run the main path once at full model width (``run_core``: 1,024
      synthetic 15 s tracks -> (128, 646) log-mel -> full ConvMMVAE, 2 epochs
@@ -117,10 +120,41 @@ def phase_identify_and_build():
     log(f"kernels built in {time.perf_counter() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in per_kernel.items())})")
     for name, text in build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}", file=sys.stderr)
+        for fn, regs, spills in ptxas_usage(text):
+            log(f"  ptxas {name}.cu {fn}: {regs} registers, spill "
+                f"{spills}")
     return smi
+
+
+def ptxas_usage(text: str):
+    """[(kernel, registers, spills)] from nvcc's -Xptxas -v output."""
+    import re
+    rows, fn, spills = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"{m.group(1)} B stores, {m.group(2)} B loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.append((fn, int(m.group(1)), spills))
+    return rows
+
+
+def kernel_name(mangled: str) -> str:
+    """The function's own name in an Itanium-mangled name: the last
+    length-prefixed identifier that ends the nested name ('...14nameE...')."""
+    import re
+    name = mangled
+    for m in re.finditer(r"\d+", mangled):
+        n, start = int(m.group()), m.end()
+        cand = mangled[start:start + n]
+        if len(cand) == n and cand.isidentifier() and \
+                mangled[start + n:start + n + 1] == "E":
+            name = cand
+    return name
 
 
 def _spectrogram(n_tracks: int, cfg, dev):
@@ -137,8 +171,9 @@ def phase_logmel(dev) -> dict:
     import torch
     from vae_hmc_tpu_torch.core.config import MelConfig
     from vae_hmc_tpu_torch.ops import mel as mel_ops
+    from vae_hmc_tpu_torch.ops.kernels import build
     from vae_hmc_tpu_torch.ops.kernels.logmel import (
-        mel_db_standardize, mel_db_standardize_plain)
+        cluster_occupancy, mel_db_standardize, mel_db_standardize_plain)
 
     log("kernel 1 mel_db_standardize against its plain version")
     max_err = 0.0
@@ -153,34 +188,61 @@ def phase_logmel(dev) -> dict:
     for what, cfg, b, kw, atol in cases:
         spec = _spectrogram(b, cfg, dev)
         fb = mel_ops.mel_filterbank_tensor(cfg, dev)
-        bands = mel_ops.filterbank_bands_tensor(cfg, dev)
-        got = mel_db_standardize(spec, fb, bands=bands, **kw)
+        got = mel_db_standardize(
+            spec, fb, bands=mel_ops.filterbank_bands_tensor(cfg, dev),
+            weights=mel_ops.filterbank_weights_tensor(cfg, dev), **kw)
         want = mel_db_standardize_plain(spec, fb, **kw)
         torch.cuda.synchronize()
         err = check_close(what, got, want, atol)
         if kw["standardize"]:
             max_err = max(max_err, err)
 
+    # a non-finite sample stays non-finite (the feature driver drops its
+    # row); the others keep their values
+    cfg = MelConfig(duration_s=1.0, n_mels=32)
+    spec = _spectrogram(4, cfg, dev)
+    spec[2, 100, 5] = float("nan")
+    fb = mel_ops.mel_filterbank_tensor(cfg, dev)
+    got = mel_db_standardize(spec, fb, bands=mel_ops.filterbank_bands_tensor(
+        cfg, dev), weights=mel_ops.filterbank_weights_tensor(cfg, dev),
+        top_db=80.0)
+    finite = torch.isfinite(got).all(dim=2).all(dim=1).tolist()
+    if finite != [True, True, False, True]:
+        fail(f"NaN sample 2: per-sample finite flags {finite}")
+    keep = torch.tensor([0, 1, 3], device=dev)
+    check_close("NaN in sample 2: the other samples", got[keep],
+                mel_db_standardize_plain(spec, fb, top_db=80.0)[keep], 1e-4)
+    log("  NaN in sample 2: its features are non-finite, the others finite")
+
     cfg = MelConfig()
     spec = _spectrogram(DEVICE_BATCH, cfg, dev)
     fb = mel_ops.mel_filterbank_tensor(cfg, dev)
     bands = mel_ops.filterbank_bands_tensor(cfg, dev)
+    weights = mel_ops.filterbank_weights_tensor(cfg, dev)
     kw = dict(top_db=mel_ops.effective_top_db(cfg), standardize=True)
+    build.reset_launch_counts()
+    got = mel_db_standardize(spec, fb, bands=bands, weights=weights, **kw)
+    per_call = build.launch_counts()["mel_db_standardize"]
     max_err = max(max_err, check_close(
-        f"B={DEVICE_BATCH} main-path batch",
-        mel_db_standardize(spec, fb, bands=bands, **kw),
+        f"B={DEVICE_BATCH} main-path batch", got,
         mel_db_standardize_plain(spec, fb, **kw), 1e-4))
-    ms = time_ms(lambda: mel_db_standardize(spec, fb, bands=bands, **kw))
+    b, f, t = spec.shape
+    m = fb.shape[0]
+    nnz = weights.numel()
+    clusters = cluster_occupancy(m, f, t, nnz)
+    log(f"  launches per call: {per_call} (one cluster launch of {b} "
+        f"clusters x 8 blocks); cluster occupancy granted: {clusters} "
+        f"clusters of 8 at once")
+    ms = time_ms(lambda: mel_db_standardize(spec, fb, bands=bands,
+                                            weights=weights, **kw))
     plain_ms = time_ms(lambda: mel_db_standardize_plain(spec, fb, **kw))
     # yardstick: cuBLAS matmul(fb, spec) plus torch ops for dB and
     # standardize (no single PyTorch call computes this function)
     library_ms = time_ms(lambda: mel_ops.per_sample_standardize(
         mel_ops.power_to_db(torch.matmul(fb, spec), top_db=kw["top_db"])))
     gemm_ms = time_ms(lambda: torch.matmul(fb, spec))
-    b, f, t = spec.shape
-    m = fb.shape[0]
-    nnz = int((fb != 0).sum())
-    bytes_moved = 4.0 * (b * f * t + m * f + 2 * m + b * m * t)
+    # spectrogram, band table, packed weights and features, each once
+    bytes_moved = 4.0 * (b * f * t + 2 * m + nnz + b * m * t)
     flops_needed = 2.0 * nnz * b * t           # the filterbank's nonzeros
     bound_ms, bound_by = bound(bytes_moved, flops_needed)
     log(f"  timing at ({b}, {f}, {t}) x ({m}, {f}): kernel {ms:.4f} ms, "
@@ -194,13 +256,16 @@ def phase_logmel(dev) -> dict:
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "gemm_only_ms": gemm_ms,
+            "launches_per_call": per_call, "cluster_occupancy": clusters,
             "shape": [b, f, t, m]}
 
 
 def phase_distance(dev) -> dict:
     import torch
+    from vae_hmc_tpu_torch.ops.kernels import build
     from vae_hmc_tpu_torch.ops.kernels.distance import (
-        pairwise_dists, pairwise_dists_plain)
+        n_tiles, occupancy, pairwise_dists, pairwise_dists_plain,
+        split_k_bounds)
 
     log("kernel 2 pairwise_dists against its plain version")
     gen = torch.Generator(device=dev)
@@ -223,6 +288,29 @@ def phase_distance(dev) -> dict:
         torch.cuda.synchronize()
         max_err = max(max_err, check_close(what, got, want, 1e-2, 1e-4))
 
+    # split-K (mel-flat width): the same bits on every call
+    xs = centred(70, 20000)
+    first, second = pairwise_dists(xs), pairwise_dists(xs)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        fail("kernel 2 split-K: two calls differ")
+    log("  split-K (70, 20000) self: two calls bit-identical")
+
+    sms_blocks = occupancy(dev)        # (SMs, tile blocks resident per SM)
+    for n, m, d in ((1024, None, 32), (1024, 6, 32), (6, None, 32),
+                    (256, None, 82688)):
+        xa, ya = centred(n, d), (None if m is None else centred(m, d))
+        build.reset_launch_counts()
+        pairwise_dists(xa, ya)
+        count = build.launch_counts()["pairwise_dists"]
+        slices = len(split_k_bounds(n_tiles(n, m or n, m is None), d,
+                                    *sms_blocks))
+        log(f"  launches per call at ({n}, {d}) x ({m or n}, {d}): counter "
+            f"{count}, device launches {1 + (slices > 1)} ({slices} "
+            f"d-slices; {sms_blocks[0]} SMs x {sms_blocks[1]} blocks)")
+        if count != 1:
+            fail(f"kernel 2 counted {count} launches for one call")
+
     x = centred(MAIN_TRACKS, 32)                # silhouette on the main path
     ms = time_ms(lambda: pairwise_dists(x), reps=200)
     plain_ms = time_ms(lambda: pairwise_dists_plain(x), reps=200)
@@ -235,9 +323,11 @@ def phase_distance(dev) -> dict:
     xf = centred(256, 82688)
     flat_ms = time_ms(lambda: pairwise_dists(xf), reps=10)
     flat_plain = time_ms(lambda: pairwise_dists_plain(xf), reps=10)
+    flat_library = time_ms(lambda: torch.cdist(xf, xf), reps=10)
     flat_bound, flat_by = dist_bound(256, 256, 82688, self_dist=True)
     log(f"  timing at (256, 82688) self: kernel {flat_ms:.4f} ms, plain "
-        f"{flat_plain:.4f} ms, bound {flat_bound:.4f} ms by {flat_by}")
+        f"{flat_plain:.4f} ms, torch.cdist {flat_library:.4f} ms, bound "
+        f"{flat_bound:.4f} ms by {flat_by}")
     return {"name": "pairwise_dists", "route": "cuda",
             "source": "vae_hmc_tpu_torch/csrc/distance.cu",
             "replaces": "vae_hmc_tpu/ops/pallas/distance_kernel.py:71",
@@ -245,6 +335,7 @@ def phase_distance(dev) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "shape": [n, n, d],
             "mel_flat_ms": flat_ms, "mel_flat_plain_ms": flat_plain,
+            "mel_flat_library_ms": flat_library,
             "mel_flat_bound_ms": flat_bound}
 
 

@@ -38,18 +38,77 @@ def test_logmel_kernel_matches_plain(gpu):
     spec = tstft.power_spectrogram(y)
     fb = tmel.mel_filterbank_tensor(cfg, gpu)
     bands = tmel.filterbank_bands_tensor(cfg, gpu)
+    weights = tmel.filterbank_weights_tensor(cfg, gpu)
     for top_db, standardize, atol in ((80.0, True, 1e-4), (None, False, 1e-3)):
         before = build.launch_counts()["mel_db_standardize"]
         got = mel_db_standardize(spec, fb, top_db=top_db,
-                                 standardize=standardize, bands=bands)
+                                 standardize=standardize, bands=bands,
+                                 weights=weights)
         assert build.launch_counts()["mel_db_standardize"] == before + 1
         want = mel_db_standardize_plain(spec, fb, top_db=top_db,
                                         standardize=standardize)
         torch.testing.assert_close(got, want, rtol=0, atol=atol)
-        # bands derived from fb on the host when not given
+        # the filterbank table derived from fb on the host when not given
         torch.testing.assert_close(
             mel_db_standardize(spec, fb, top_db=top_db,
                                standardize=standardize), got, rtol=0, atol=0)
+
+
+def _spec(gpu, n, cfg, seed):
+    rng = np.random.default_rng(seed)
+    y = torch.from_numpy(rng.normal(0, 0.1, (n, cfg.n_samples))
+                         .astype(np.float32)).to(gpu)
+    return tstft.power_spectrogram(y)
+
+
+@pytest.mark.parametrize("b,cfg_kw", [
+    (1, dict(duration_s=1.0, n_mels=32)),      # one sample, T = 44
+    (3, dict(duration_s=1.0, n_mels=128)),     # the 1 s shape at 128 mels
+    (2, dict(duration_s=0.7, n_mels=32)),      # T = 31: odd, not a multiple of 8
+    (2, dict(duration_s=0.1, n_mels=32)),      # T = 5: some blocks own no frame
+])
+@pytest.mark.parametrize("ref_max", [True, False])
+@pytest.mark.parametrize("top_db,standardize,atol", [
+    (80.0, True, 1e-4), (None, True, 1e-4), (80.0, False, 1e-3),
+    (None, False, 1e-3)])
+def test_logmel_kernel_shapes_and_options(gpu, b, cfg_kw, ref_max, top_db,
+                                          standardize, atol):
+    cfg = MelConfig(**cfg_kw)
+    spec = _spec(gpu, b, cfg, seed=b)
+    fb = tmel.mel_filterbank_tensor(cfg, gpu)
+    kw = dict(ref_max=ref_max, top_db=top_db, standardize=standardize)
+    got = mel_db_standardize(spec, fb, bands=tmel.filterbank_bands_tensor(
+        cfg, gpu), weights=tmel.filterbank_weights_tensor(cfg, gpu), **kw)
+    want = mel_db_standardize_plain(spec, fb, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+def test_logmel_kernel_nan_sample_stays_non_finite(gpu):
+    cfg = MelConfig(duration_s=1.0, n_mels=32)
+    rng = np.random.default_rng(11)
+    y = rng.normal(0, 0.1, (3, cfg.n_samples)).astype(np.float32)
+    y[1, 5000] = np.nan
+    spec = tstft.power_spectrogram(torch.from_numpy(y).to(gpu))
+    fb = tmel.mel_filterbank_tensor(cfg, gpu)
+    got = mel_db_standardize(spec, fb, top_db=80.0)
+    finite = torch.isfinite(got).all(dim=2).all(dim=1).cpu().tolist()
+    assert finite == [True, False, True]
+    keep = torch.tensor([0, 2], device=gpu)
+    torch.testing.assert_close(
+        got[keep], mel_db_standardize_plain(spec, fb, top_db=80.0)[keep],
+        rtol=0, atol=1e-4)
+
+
+def test_logmel_kernel_repeats_bitwise_one_launch_a_call(gpu):
+    cfg = MelConfig(duration_s=1.0, n_mels=128)
+    spec = _spec(gpu, 4, cfg, seed=5)
+    fb = tmel.mel_filterbank_tensor(cfg, gpu)
+    before = build.launch_counts()["mel_db_standardize"]
+    a = mel_db_standardize(spec, fb, top_db=80.0)
+    assert build.launch_counts()["mel_db_standardize"] == before + 1
+    b = mel_db_standardize(spec, fb, top_db=80.0)
+    assert build.launch_counts()["mel_db_standardize"] == before + 2
+    assert torch.equal(a, b)
 
 
 def test_distance_kernel_matches_plain(gpu):
@@ -67,6 +126,35 @@ def test_distance_kernel_matches_plain(gpu):
                                    rtol=1e-4, atol=1e-2)
         if m is None:
             assert torch.count_nonzero(got.diagonal()) == 0
+            assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("n,m,d", [(70, None, 20000), (70, 6, 20000),
+                                   (45, None, 4099)])
+def test_distance_kernel_split_k(gpu, n, m, d):
+    """Split-K shapes (slices > 1): right, bit-identical across calls, one
+    count a call."""
+    from vae_hmc_tpu_torch.ops.kernels.distance import (n_tiles, occupancy,
+                                                        split_k_bounds)
+    rng = np.random.default_rng(n + d)
+
+    def centred(rows):
+        x = rng.normal(0, 1, (rows, d)).astype(np.float32)
+        return torch.from_numpy(x - x.mean(axis=0)).to(gpu)
+
+    x = centred(n)
+    y = None if m is None else centred(m)
+    tiles = n_tiles(n, m or n, m is None)
+    assert len(split_k_bounds(tiles, d, *occupancy(gpu))) > 1
+    before = build.launch_counts()["pairwise_dists"]
+    got = pairwise_dists(x, y)
+    again = pairwise_dists(x, y)
+    assert build.launch_counts()["pairwise_dists"] == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, pairwise_dists_plain(x, y), rtol=1e-4,
+                               atol=1e-2)
+    if m is None:
+        assert torch.count_nonzero(got.diagonal()) == 0
 
 
 def test_main_path_small_on_gpu(gpu):

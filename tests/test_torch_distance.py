@@ -13,6 +13,7 @@ import torch
 from vae_hmc_tpu.metrics.internal import pairwise_sq_dists
 from vae_hmc_tpu.ops.pallas.distance_kernel import pairwise_dists_pallas
 from vae_hmc_tpu_torch.ops.kernels import build
+from vae_hmc_tpu_torch.ops.kernels import distance as dk
 from vae_hmc_tpu_torch.ops.kernels.distance import (pairwise_dists,
                                                     pairwise_dists_plain)
 
@@ -64,3 +65,43 @@ def test_wrapper_cpu_takes_plain_version_and_counts_nothing():
     with pytest.raises(ValueError):
         pairwise_dists(torch.empty((4, 3), device="meta"))
 
+
+
+@pytest.mark.parametrize("n,m,d,sms,blocks,split", [
+    (1024, None, 32, 132, 2, False),     # silhouette on the main path
+    (1024, 6, 32, 132, 2, False),        # Davies-Bouldin, point -> centroid
+    (6, None, 32, 132, 2, False),        # centroid -> centroid
+    (2924, None, 32, 132, 2, False),     # the full corpus
+    (256, None, 82688, 132, 2, True),    # mel-flat width
+    (70, None, 20000, 132, 2, True),
+    (70, 6, 20000, 132, 2, True),
+    (256, None, 82688, 132, 4, True),
+    (45, None, 4099, 132, 2, True),
+    (300, None, 1500, 132, 2, False),    # too narrow to split
+])
+def test_split_k_rule(n, m, d, sms, blocks, split):
+    """Kernel 2's split-K rule: the slices cover [0, d) exactly, none is
+    empty, all but the last are CHUNK-aligned and at least SPLIT_MIN_COLS
+    wide, tiles x slices fit one round of resident blocks, and the
+    main-path shapes are not split."""
+    tiles = dk.n_tiles(n, m or n, m is None)
+    bounds = dk.split_k_bounds(tiles, d, sms, blocks)
+    assert (len(bounds) > 1) == split
+    assert bounds[0][0] == 0 and bounds[-1][1] == d
+    for (a, b), (c, _) in zip(bounds, bounds[1:]):
+        assert b == c
+    assert all(b > a for a, b in bounds)
+    if split:
+        assert all((b - a) % dk.CHUNK == 0 for a, b in bounds[:-1])
+        assert all(b - a >= dk.SPLIT_MIN_COLS for a, b in bounds[:-1])
+        assert tiles * len(bounds) <= blocks * sms
+
+
+def test_tile_counts():
+    assert dk.n_tiles(256, 256, True) == 10          # 4 x 4 tiles, i <= j
+    assert dk.n_tiles(1024, 1024, True) == 136
+    assert dk.n_tiles(1024, 6, False) == 16
+    assert dk.n_tiles(37, 37, True) == 1
+    assert dk.split_k_bounds(10, 82688, 132, 2)[0] == (0, 3200)
+    assert len(dk.split_k_bounds(10, 82688, 132, 2)) == 26
+    assert dk.split_k_bounds(1, 0) == [(0, 0)]

@@ -150,3 +150,51 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         mel_db_standardize(spec, fb)
 
+
+
+@pytest.mark.parametrize("n_mels", [128, 32, 16])
+def test_packed_filterbank_table_rebuilds_fb_exactly(n_mels):
+    """Kernel 1's compact filterbank: each row's weights over its band,
+    packed row after row, scatter back to the dense fb bit for bit."""
+    cfg = MelConfig(n_mels=n_mels)
+    fb = tmel.mel_filterbank_tensor(cfg, "cpu").numpy()
+    bands = tmel.filterbank_bands_tensor(cfg, "cpu").numpy()
+    weights = tmel.filterbank_weights_tensor(cfg, "cpu").numpy()
+    assert weights.dtype == np.float32
+    assert weights.size == int((bands[:, 1] - bands[:, 0]).clip(0).sum())
+    assert weights.size == int((fb != 0).sum())          # 2,018 at 128 mels
+    dense = np.zeros_like(fb)
+    off = 0
+    for row, (lo, hi) in enumerate(bands):
+        n = max(hi - lo, 0)
+        dense[row, lo:lo + n] = weights[off:off + n]
+        off += n
+    np.testing.assert_array_equal(dense, fb)
+    # an all-zero row packs nothing
+    empty = np.zeros((3, 6), np.float32)
+    empty[0, 1:3] = [0.5, 0.25]
+    empty[2, 4] = 2.0
+    np.testing.assert_array_equal(
+        tmel.filterbank_weights(empty, tmel.filterbank_bands(empty)),
+        np.float32([0.5, 0.25, 2.0]))
+
+
+def test_power_spectrogram_rows_are_16_byte_aligned():
+    """Kernel 1 reads the spectrogram through a TMA tensor map: rows padded
+    to 4 frames, the same values as the contiguous result, zero pad."""
+    y = torch.from_numpy(_signals(2, 1.0, seed=8))
+    spec = tstft.power_spectrogram(y)
+    b, f, t = spec.shape
+    assert (b, f, t) == (2, 1025, 44)
+    tp = -(-t // 4) * 4
+    assert spec.stride() == (f * tp, tp, 1) and spec.data_ptr() % 16 == 0
+    odd = tstft.power_spectrogram(torch.from_numpy(_signals(1, 0.7, seed=9)))
+    assert odd.shape[2] == 31 and odd.stride(1) == 32
+    flat = spec.contiguous()
+    torch.testing.assert_close(tstft.row_aligned(flat), flat, rtol=0, atol=0)
+    assert tstft.row_aligned(spec) is spec
+    padded = tstft.row_aligned(odd.contiguous())
+    torch.testing.assert_close(padded, odd, rtol=0, atol=0)
+    assert padded.stride(1) == 32
+    rows = padded.as_strided((1, 1025, 32), padded.stride())   # with the pad
+    assert torch.count_nonzero(rows[:, :, 31:]) == 0

@@ -88,24 +88,40 @@ def filterbank_bands(fb: np.ndarray) -> np.ndarray:
     return np.stack([lo, hi], axis=1).astype(np.int32)
 
 
+def filterbank_weights(fb: np.ndarray, bands: np.ndarray) -> np.ndarray:
+    """(nnz,) float32: each row's weights over its band ``[lo, hi)``, packed
+    row after row (nnz = sum of hi - lo).  With the bands this is kernel 1's
+    compact filterbank table (2,018 weights for the 128-mel Slaney bank)."""
+    return np.concatenate([np.asarray(row[lo:hi], np.float32)
+                           for row, (lo, hi) in zip(fb, bands)]
+                          + [np.zeros(0, np.float32)])
+
+
 @functools.lru_cache(maxsize=8)
 def _filterbank_and_bands(sr: int, n_fft: int, n_mels: int, fmin: float,
                           fmax: Optional[float]):
     fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
-    return fb, filterbank_bands(fb)
+    bands = filterbank_bands(fb)
+    return fb, bands, filterbank_weights(fb, bands)
+
+
+def _cached(cfg: MelConfig):
+    return _filterbank_and_bands(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
+                                 cfg.fmin, cfg.fmax)
 
 
 def mel_filterbank_tensor(cfg: MelConfig, device) -> torch.Tensor:
-    fb, _ = _filterbank_and_bands(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
-                                  cfg.fmin, cfg.fmax)
-    return torch.tensor(fb, device=device)
+    return torch.tensor(_cached(cfg)[0], device=device)
 
 
 def filterbank_bands_tensor(cfg: MelConfig, device) -> torch.Tensor:
     """``filterbank_bands`` of the config's filterbank, on `device`."""
-    _, bands = _filterbank_and_bands(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
-                                     cfg.fmin, cfg.fmax)
-    return torch.tensor(bands, device=device)
+    return torch.tensor(_cached(cfg)[1], device=device)
+
+
+def filterbank_weights_tensor(cfg: MelConfig, device) -> torch.Tensor:
+    """``filterbank_weights`` of the config's filterbank, on `device`."""
+    return torch.tensor(_cached(cfg)[2], device=device)
 
 
 def effective_top_db(cfg: MelConfig) -> Optional[float]:

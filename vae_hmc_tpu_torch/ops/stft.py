@@ -5,7 +5,11 @@ of n_fft.  The rDFT is two plain fp32 matmuls against a cos/sin basis, as
 the JAX package computes it (``method="dft"``); they go to cuBLAS with TF32
 off (core.device), the analogue of the reference's ``Precision.HIGHEST``.
 
-(B, n_samples) in, (B, 1 + n_fft//2, n_frames) out, contiguous.
+(B, n_samples) in, (B, 1 + n_fft//2, n_frames) out: a view of a buffer
+whose rows are padded with zeros to a multiple of 4 frames (16 bytes), so
+that kernel 1 (``ops.kernels.logmel``) can copy each row segment with a TMA
+bulk copy; at T = 646 a row is 2,584 bytes, which is not 16-byte aligned.
+The values are those of the contiguous result.
 """
 from __future__ import annotations
 
@@ -60,7 +64,8 @@ def dft_matrices(n_fft: int, device=None):
 def power_spectrogram(y: torch.Tensor, n_fft: int = 2048,
                       hop_length: int = 512,
                       power: float = 2.0) -> torch.Tensor:
-    """(B, L) waveforms -> (B, 1 + n_fft//2, T) |STFT|^power, contiguous."""
+    """(B, L) waveforms -> (B, 1 + n_fft//2, T) |STFT|^power, with the row
+    pitch padded to a multiple of 4 frames (``row_aligned``)."""
     frames = frame_signal(y, n_fft, hop_length)
     frames = frames * hann_window(n_fft, y.device)
     cos_m, sin_m = dft_matrices(n_fft, y.device)
@@ -71,4 +76,18 @@ def power_spectrogram(y: torch.Tensor, n_fft: int = 2048,
         mag = torch.sqrt(mag)
     elif power != 2.0:
         mag = mag ** (power / 2.0)
-    return mag.transpose(1, 2).contiguous()                    # (B, F, T)
+    return row_aligned(mag.transpose(1, 2))                     # (B, F, T)
+
+
+def row_aligned(x: torch.Tensor) -> torch.Tensor:
+    """(B, F, T) -> the same values as a view of a (B, F, Tp) buffer, Tp the
+    next multiple of 4 (16-byte rows), with the pad columns zero.  Returns x
+    itself when it already has that layout."""
+    b, f, t = x.shape
+    tp = -(-t // 4) * 4
+    if x.stride() == (f * tp, tp, 1) and x.data_ptr() % 16 == 0:
+        return x
+    buf = torch.empty((b, f, tp), dtype=x.dtype, device=x.device)
+    buf[:, :, t:].zero_()
+    buf[:, :, :t].copy_(x)
+    return buf[:, :, :t]

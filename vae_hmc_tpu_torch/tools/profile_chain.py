@@ -25,7 +25,7 @@ N_TRACKS = 1024
 EPOCHS = 2
 TOP = 25                     # rows of each ranking
 # device functions of csrc/logmel.cu and csrc/distance.cu
-PORT_KERNELS = ("mel_gemm", "db_standardize", "row_sqnorm", "pairwise_tile")
+PORT_KERNELS = ("mel_db_cluster", "pairwise_tile", "reduce_slices")
 STAGE_KEYS = ("seconds_features", "seconds_lyrics", "seconds_train",
               "seconds_cluster_metrics", "seconds_total")
 
