@@ -11,10 +11,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      non-finite through kernel 1 and that kernel 2's split-K result repeats
      bit for bit, count launches per call, and time kernel, plain version
      and a PyTorch library yardstick (CUDA graph replays, CUDA events);
-  3. run the main path once at full model width (``run_core``: 1,024
-     synthetic 15 s tracks -> (128, 646) log-mel -> full ConvMMVAE, 2 epochs
-     at batch 64 = 32 Adam steps -> KMeans(k=6, n_init=10) -> silhouette,
-     Davies-Bouldin, ARI), with the kernels' launch counters reset just
+  3. run the main path once at full model width (``run_core``: the medium
+     tier's 2,924 synthetic 15 s tracks -> (128, 646) log-mel -> MiniLM
+     lyrics embeddings (synthetic real-shaped weights) -> full ConvMMVAE,
+     1 epoch at batch 64 = 46 Adam steps -> KMeans(k=6, n_init=10) ->
+     silhouette, Davies-Bouldin, ARI), with the kernels' launch counters
+     reset just before and read just after;
+  4. from phase 3's tensors, the medium tier's scripts 11, 13 and 16: three
+     representations (latents (2924, 32), mel-flat (2924, 82,688), lyrics
+     embeddings), the clustering suite (21 rows) and the 102-cell sweep,
+     every distance from kernel 2, with the launch counters reset just
      before and read just after.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -35,8 +41,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores
 
-MAIN_TRACKS = 1024
-MAIN_EPOCHS = 2
+MAIN_TRACKS = 2924              # the medium tier's corpus
+MAIN_EPOCHS = 1
+MEL_FLAT = 128 * 646            # width of the mel-flat representation
 DEVICE_BATCH = 128               # log-mel batch of the main path
 
 
@@ -280,13 +287,20 @@ def phase_distance(dev) -> dict:
                             ("(1024, 32) x (6, 32) centroids", (1024, 32), 6),
                             ("(6, 32) centroids self", (6, 32), None),
                             ("(256, 82688) self, mel-flat", (256, 82688), None),
-                            ("(37, 17) ragged self", (37, 17), None)]:
+                            ("(37, 17) ragged self", (37, 17), None),
+                            (f"({MAIN_TRACKS}, 384) self, lyrics sweep cache",
+                             (MAIN_TRACKS, 384), None),
+                            (f"({MAIN_TRACKS}, {MEL_FLAT}) x (8, {MEL_FLAT}) "
+                             "sweep DBI centroids", (MAIN_TRACKS, MEL_FLAT), 8),
+                            (f"({MAIN_TRACKS}, {MEL_FLAT}) self, mel-flat "
+                             "sweep cache", (MAIN_TRACKS, MEL_FLAT), None)]:
         x = centred(n, d)
         y = None if m is None else centred(m, d)
         got = pairwise_dists(x, y)
         want = pairwise_dists_plain(x, y)
         torch.cuda.synchronize()
         max_err = max(max_err, check_close(what, got, want, 1e-2, 1e-4))
+        del x, y, got, want
 
     # split-K (mel-flat width): the same bits on every call
     xs = centred(70, 20000)
@@ -298,7 +312,7 @@ def phase_distance(dev) -> dict:
 
     sms_blocks = occupancy(dev)        # (SMs, tile blocks resident per SM)
     for n, m, d in ((1024, None, 32), (1024, 6, 32), (6, None, 32),
-                    (256, None, 82688)):
+                    (256, None, 82688), (MAIN_TRACKS, None, MEL_FLAT)):
         xa, ya = centred(n, d), (None if m is None else centred(m, d))
         build.reset_launch_counts()
         pairwise_dists(xa, ya)
@@ -328,6 +342,20 @@ def phase_distance(dev) -> dict:
     log(f"  timing at (256, 82688) self: kernel {flat_ms:.4f} ms, plain "
         f"{flat_plain:.4f} ms, torch.cdist {flat_library:.4f} ms, bound "
         f"{flat_bound:.4f} ms by {flat_by}")
+    # the sweep's per-representation cache at the mel-flat width
+    del xf
+    xs = centred(MAIN_TRACKS, MEL_FLAT)
+    cache_ms = time_ms(lambda: pairwise_dists(xs), reps=3, warmup=1)
+    cache_plain = time_ms(lambda: pairwise_dists_plain(xs), reps=3, warmup=1)
+    cache_library = time_ms(lambda: torch.cdist(xs, xs), reps=3, warmup=1)
+    cache_bound, cache_by = dist_bound(MAIN_TRACKS, MAIN_TRACKS, MEL_FLAT,
+                                       self_dist=True)
+    log(f"  timing at ({MAIN_TRACKS}, {MEL_FLAT}) self: kernel {cache_ms:.4f} "
+        f"ms, plain {cache_plain:.4f} ms, torch.cdist {cache_library:.4f} ms, "
+        f"bound {cache_bound:.4f} ms by {cache_by} "
+        f"({cache_bound / cache_ms:.1%} of the bound)")
+    del xs
+    torch.cuda.empty_cache()
     return {"name": "pairwise_dists", "route": "cuda",
             "source": "vae_hmc_tpu_torch/csrc/distance.cu",
             "replaces": "vae_hmc_tpu/ops/pallas/distance_kernel.py:71",
@@ -336,10 +364,15 @@ def phase_distance(dev) -> dict:
             "library_ms": library_ms, "shape": [n, n, d],
             "mel_flat_ms": flat_ms, "mel_flat_plain_ms": flat_plain,
             "mel_flat_library_ms": flat_library,
-            "mel_flat_bound_ms": flat_bound}
+            "mel_flat_bound_ms": flat_bound,
+            "sweep_cache_ms": cache_ms, "sweep_cache_plain_ms": cache_plain,
+            "sweep_cache_library_ms": cache_library,
+            "sweep_cache_bound_ms": cache_bound,
+            "sweep_cache_shape": [MAIN_TRACKS, MAIN_TRACKS, MEL_FLAT]}
 
 
-def phase_main_path(dev) -> dict:
+def phase_main_path(dev):
+    """-> (the kernels' launches in run_core, run_core's tensors)."""
     import torch
     from vae_hmc_tpu_torch.ops.kernels import build
     from vae_hmc_tpu_torch.pipelines.bench_chain import run_core
@@ -377,12 +410,85 @@ def phase_main_path(dev) -> dict:
     if not (-1.0 <= res["silhouette"] <= 1.0 and res["davies_bouldin"] > 0.0
             and -1.0 <= res["ari_vs_genre"] <= 1.0):
         fail("a clustering metric is outside its range")
+    if not res["lyrics_backend"].startswith("minilm"):
+        fail(f"lyrics backend {res['lyrics_backend']!r}, not MiniLM")
     if launches != res["launches"]:
         fail(f"launch counts {launches} != run_core's {res['launches']}")
     for name, count in launches.items():
         if count <= 0:
             fail(f"kernel {name} was not launched on the main path")
-    return launches
+    return launches, res["tensors"]
+
+
+# the JAX package's CSV headers of scripts 13 and 16
+# (vae_hmc_tpu/pipelines/medium.py _HDR13, _HDR16)
+HDR13 = ["representation", "algo", "params", "n_clusters_found", "n_noise",
+         "silhouette", "davies_bouldin", "ari"]
+HDR16 = ["representation", "algo", "params", "n_clusters_found", "n_noise",
+         "noise_frac", "silhouette", "davies_bouldin", "ari", "score"]
+
+
+def phase_medium_sweep(dev, tensors) -> dict:
+    """Scripts 11, 13 and 16 on phase 3's tensors, into a temporary
+    workspace."""
+    import csv
+    import tempfile
+    import torch
+    from vae_hmc_tpu_torch.ops.kernels import build
+    from vae_hmc_tpu_torch.tools.profile_chain import scripts_11_13_16
+
+    log("medium tier scripts 11, 13 and 16 on the main path's tensors")
+    headers = {}
+    with tempfile.TemporaryDirectory() as root:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        build.reset_launch_counts()
+        out = scripts_11_13_16(dev, tensors, Path(root))
+        launches = build.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        for name in ("medium_clustering_metrics_all.csv",
+                     "medium_full_sweep_metrics.csv",
+                     "medium_full_sweep_best_by_representation.csv",
+                     "medium_full_sweep_best_overall.csv"):
+            path = Path(root) / "results" / name
+            if not path.exists():
+                fail(f"{name} was not written")
+            with open(path, newline="") as f:
+                headers[name] = next(csv.reader(f))
+    rows13, rows16, sec = out["rows13"], out["rows16"], out["seconds"]
+
+    log("  representations: " + ", ".join(
+        f"{r.name} {tuple(r.x_dev.shape)}" for r in out["reps"])
+        + f"; lyrics backend {out['lyrics_backend']}")
+    log(f"  seconds: representations {sec['seconds_representations']:.3f}, "
+        f"script 13 {sec['seconds_script13']:.3f}, script 16 "
+        f"{sec['seconds_script16']:.3f}")
+    log(f"  rows: script 13 {len(rows13)}, script 16 {len(rows16)}")
+    log(f"  peak device memory {peak / 2**30:.3f} GiB")
+    log(f"  kernels: {json.dumps(launches)}")
+    for r in rows13:
+        log(f"    13 {r['representation']:21s} {r['algo']:13s} "
+            f"{r['params']:14s} n={r['n_clusters_found']} noise={r['n_noise']}"
+            f" sil={r['silhouette']} dbi={r['davies_bouldin']} ari={r['ari']}")
+
+    if len(rows13) != 21 or len(rows16) != 102:
+        fail(f"{len(rows13)} suite rows and {len(rows16)} sweep rows, "
+             "want 21 and 102")
+    for r in rows13 + rows16:
+        if r["algo"] == "dbscan":
+            continue
+        sil, dbi = r["silhouette"], r["davies_bouldin"]
+        if not (sil is not None and math.isfinite(sil) and -1.0 <= sil <= 1.0
+                and dbi is not None and dbi > 0.0 and r["ari"] is not None):
+            fail(f"row {r} lacks a finite silhouette in [-1, 1], a DBI > 0 "
+                 "or an ARI")
+    for name, header in headers.items():
+        want = HDR13 if name == "medium_clustering_metrics_all.csv" else HDR16
+        if header != want:
+            fail(f"{name} header {header} != {want}")
+    if launches["pairwise_dists"] <= 0:
+        fail("kernel 2 was not launched by scripts 13 and 16")
+    return {**sec, "launches": launches, "peak_bytes": peak}
 
 
 def main() -> None:
@@ -396,9 +502,11 @@ def main() -> None:
     t0 = time.perf_counter()
     smi = phase_identify_and_build()
     kernels = [phase_logmel(dev), phase_distance(dev)]
-    launches = phase_main_path(dev)
+    launches, tensors = phase_main_path(dev)
+    sweep = phase_medium_sweep(dev, tensors)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["sweep_launches"] = sweep["launches"][k["name"]]
     log(f"done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,6 @@
 """GPU tests of the port: each CUDA kernel against its plain version on the
-card, and the main path through both kernels at a small size.
+card, the main path through both kernels at a small size, and MiniLM and the
+scripts 13/16 sweep on the card against the CPU.
 
 Marked ``cuda``; they skip without a GPU.  The GPU machine has no JAX and
 tests/conftest.py imports it, so this file imports torch and numpy only and
@@ -165,3 +166,45 @@ def test_main_path_small_on_gpu(gpu):
     assert r["feature_shape"] == [48, 128, 44, 1]
     assert np.isfinite([r["silhouette"], r["davies_bouldin"],
                         r["train_final_loss"]]).all()
+
+
+def test_minilm_on_gpu_matches_cpu(gpu):
+    """The same synthetic weights (drawn on the host) on both devices; each
+    batch padded to its own longest row, one row truncated at 256 tokens."""
+    from vae_hmc_tpu_torch.text import minilm
+    texts = ["the rain falls all night", "hello, world!",
+             " ".join(["love", "unbelievable", "o'clock"] * 100), ""]
+    cpu_model, tok = minilm.synthetic_minilm(texts, seed=3, device="cpu")
+    gpu_model, _ = minilm.synthetic_minilm(texts, seed=3, device=gpu)
+    want = minilm.encode_texts(cpu_model, tok, texts, batch_size=3)
+    got = minilm.encode_texts(gpu_model, tok, texts, batch_size=3)
+    assert got.shape == (4, 384)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
+def test_sweep_on_gpu_matches_cpu(gpu):
+    """Scripts 13 and 16's suite and sweep on the card against the CPU: the
+    same rows, metrics within atol 1e-4, every distance from kernel 2."""
+    from tests import torch_sweep_data as sweep_data
+    from vae_hmc_tpu_torch.cluster import sweep
+    from vae_hmc_tpu_torch.core.align import labels_for_ids
+    arrays, genre_map = sweep_data.reps_data()
+    rows = {}
+    before = build.launch_counts()["pairwise_dists"]
+    for dev in ("cpu", gpu):
+        reps = [sweep.RepData.build(name, x, labels_for_ids(ids, genre_map),
+                                    device=dev)
+                for name, (x, ids) in arrays.items()]
+        rows[str(dev)] = [r for rep in reps for r in
+                          sweep.cluster_suite(rep, 6) + sweep.full_sweep(rep)]
+    assert build.launch_counts()["pairwise_dists"] > before
+    ours, ref = rows["cuda"], rows["cpu"]
+    assert len(ours) == len(ref) == 3 * (7 + 34)
+    for r, c in zip(ours, ref):
+        assert list(r) == list(c)
+        for key, a in r.items():
+            if key in ("silhouette", "davies_bouldin", "ari", "score",
+                       "noise_frac") and a is not None:
+                assert a == pytest.approx(c[key], abs=1e-4), (key, r, c)
+            else:
+                assert a == c[key], (key, r, c)

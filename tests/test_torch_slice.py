@@ -1,6 +1,7 @@
 """The port's main path as a whole, and the rules the port keeps.
 
-  - run_core end to end on the CPU at 32 tracks, 1 s clips, 1 epoch;
+  - run_core end to end on the CPU at 32 tracks, 1 s clips, 1 epoch, with
+    the MiniLM lyrics backend, and with the hashed one;
   - the copied host code (dataset, synthesis recipes, hashed embedding,
     MelConfig) equals the JAX package's, and the torch ``synth_core`` at
     noise_lv = 0 matches the JAX one to atol 1e-5;
@@ -39,19 +40,37 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def test_run_core_on_cpu():
+def test_run_core_on_cpu(monkeypatch):
+    """The default lyrics backend: MiniLM, on synthetic real-shaped weights
+    when no checkpoint directory is set."""
+    monkeypatch.delenv("VAE_HMC_MINILM_DIR", raising=False)
     r = run_core(n_tracks=32, epochs=1, device="cpu", duration_s=1.0,
                  device_batch=16)
     assert r["feature_shape"] == [32, 128, 44, 1]
     assert r["mu_shape"] == [32, 32]
     assert r["report_ok"] == 32
-    assert r["lyrics_backend"] == "hashed"
+    assert r["lyrics_backend"] == "minilm-torch (synthetic real-shaped weights)"
     assert r["launches"] == {"mel_db_standardize": 0, "pairwise_dists": 0}
     for k in ("train_final_loss", "silhouette", "davies_bouldin",
               "ari_vs_genre", "kmeans_inertia", "seconds_total"):
         assert math.isfinite(r[k]), k
     assert -1.0 <= r["silhouette"] <= 1.0 and r["davies_bouldin"] > 0.0
     assert len(r["history"]) == 1
+
+
+def test_run_core_hashed_lyrics_backend():
+    r = run_core(n_tracks=16, epochs=1, device="cpu", duration_s=0.5,
+                 device_batch=16, lyrics_backend="hashed")
+    assert r["lyrics_backend"] == "hashed"
+    lyr = r["tensors"]["lyrics_embedding"]
+    ds = tsyn.make_dataset(16, seed=42, lyrics_coverage=0.9)
+    want = hashed_embedding([t or "" for t in ds.lyrics])
+    want *= np.asarray([[1.0 if t else 0.0] for t in ds.lyrics], np.float32)
+    np.testing.assert_array_equal(lyr.numpy(), want)
+    assert math.isfinite(r["silhouette"])
+    with pytest.raises(ValueError, match="lyrics_backend"):
+        run_core(n_tracks=16, epochs=1, device="cpu", duration_s=0.5,
+                 lyrics_backend="tfidf")
 
 
 def test_dataset_and_recipes_copied_exactly():
@@ -161,6 +180,8 @@ def test_port_imports_no_jax():
         vae_hmc_tpu_torch.__path__, "vae_hmc_tpu_torch.")]
     assert "vae_hmc_tpu_torch.ops.kernels.logmel" in modules
     assert "vae_hmc_tpu_torch.pipelines.bench_chain" in modules
+    assert "vae_hmc_tpu_torch.text.minilm" in modules
+    assert "vae_hmc_tpu_torch.cluster.sweep" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -113,3 +113,9 @@ def kmeans(x, cfg: KMeansConfig = KMeansConfig(), device="cuda") -> KMeansResult
         centers=centers[best].cpu().numpy(),
         inertia=float(inertia[best]),
         n_iter=int(n_iter[best]))
+
+
+def kmeans_fit_predict(x, n_clusters: int, n_init: int = 20, seed: int = 42,
+                       device="cuda") -> np.ndarray:
+    return kmeans(x, KMeansConfig(n_clusters=n_clusters, n_init=n_init,
+                                  seed=seed), device=device).labels

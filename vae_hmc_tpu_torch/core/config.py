@@ -1,13 +1,43 @@
-"""Configuration dataclasses of the main path, copied from the JAX package.
+"""Configuration dataclasses, copied from the JAX package.
 
-Copies of ``vae_hmc_tpu.core.config`` ``MelConfig``, ``ConvMMVaeConfig`` and
-``KMeansConfig`` with their reference citations, so the port never imports
-the JAX package.  Field values are identical; the tests compare them.
+Copies of ``vae_hmc_tpu.core.config`` ``Workspace``, ``MelConfig``,
+``ConvMMVaeConfig``, ``KMeansConfig``, ``SweepConfig`` and
+``TextEmbedConfig`` with their reference citations, so the port never
+imports the JAX package.  Field values are identical; the tests compare
+them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class Workspace:
+    """Root directories of the artifact contract (reference layout)."""
+
+    root: Path = Path(".")
+
+    @property
+    def data(self) -> Path:
+        return Path(self.root) / "data"
+
+    @property
+    def results(self) -> Path:
+        return Path(self.root) / "results"
+
+    @property
+    def data_hard(self) -> Path:
+        return self.data / "hard"
+
+    @property
+    def results_hard(self) -> Path:
+        return self.results / "hard"
+
+    def manifest_clean(self) -> Path:
+        # reference scripts/05:53-57 canonical manifest
+        return self.data / "fma_manifest_combined_text_only_clean.csv"
 
 
 @dataclass(frozen=True)
@@ -69,3 +99,25 @@ class KMeansConfig:
     # consumed by the tier pipelines (they scale before calling kmeans);
     # kmeans() itself takes data as given.
     standardize: bool = True       # easy: 07:67-68 scales; hard: 20:65-69 does NOT
+
+
+@dataclass(frozen=True)
+class SweepConfig:
+    """Medium full clustering sweep grid (reference scripts/16:159-244)."""
+
+    ks: Tuple[int, ...] = (4, 5, 6, 7, 8)                       # 16:181
+    dbscan_eps: Tuple[float, ...] = (0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)  # 16:219
+    dbscan_min_samples: Tuple[int, ...] = (3, 5, 8)             # 16:219
+    representations: Tuple[str, ...] = (
+        "vae_mm_latents", "baseline_mel_flat", "baseline_lyrics_only")  # 16:163-165
+    seed: int = 42
+
+
+@dataclass(frozen=True)
+class TextEmbedConfig:
+    model_name: str = "sentence-transformers/all-MiniLM-L6-v2"  # 11:85
+    embed_dim: int = 384
+    normalize: bool = True          # 11:90 normalize_embeddings=True
+    min_chars: int = 30             # 11:43 skip <30 chars
+    tfidf_max_features: int = 2000  # 18:221 fallback TfidfVectorizer(max_features=2000)
+    batch_size: int = 64

@@ -1,4 +1,5 @@
-"""Carry Flax ConvMMVAE weights across into the torch ``ConvMMVAE``.
+"""Carry Flax weights across into the port's modules: ``ConvMMVAE`` and
+``MiniLM``.
 
 The inverse of ``vae_hmc_tpu.models.torch_port`` (linear, conv2d,
 conv_transpose2d and the NCHW-flatten seams), written here so the port
@@ -11,7 +12,9 @@ permutation, so it maps gradients the same way:
     conv is the gradient of a correlation, lax's a fractionally strided
     correlation);
   - ``enc_fc`` rows and ``dec_fc2`` columns and bias reordered from the
-    Flax NHWC flatten (H, W, C) to torch's NCHW flatten (C, H, W).
+    Flax NHWC flatten (H, W, C) to torch's NCHW flatten (C, H, W);
+  - Embed ``embedding`` -> Embedding weight; LayerNorm ``scale``/``bias``
+    -> LayerNorm weight/bias.
 """
 from __future__ import annotations
 
@@ -56,4 +59,26 @@ def conv_mm_vae_state_dict(params: Params, enc_hw: Tuple[int, int],
                               .reshape(-1, k.shape[0]))
     b = params["dec_fc2"]["bias"]
     sd["dec_fc2.bias"] = _t(b.reshape(eh, ew, c).transpose(2, 0, 1).reshape(-1))
+    return sd
+
+
+def minilm_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """Flax MiniLM variables (``{"params": {...}}``, as the JAX package's
+    ``synthetic_minilm`` returns them or ``MiniLM.init`` makes them) ->
+    ``text.minilm.MiniLM`` state_dict."""
+    p = variables["params"]
+    sd = {f"{name}.weight": _t(p[name]["embedding"])
+          for name in ("tok_emb", "pos_emb", "type_emb")}
+    sd["emb_ln.weight"] = _t(p["emb_ln"]["scale"])
+    sd["emb_ln.bias"] = _t(p["emb_ln"]["bias"])
+    i = 0
+    while f"layer{i}" in p:
+        lp = p[f"layer{i}"]
+        for name in ("q", "k", "v", "att_out", "ff1", "ff2"):
+            sd[f"layers.{i}.{name}.weight"] = _t(np.asarray(lp[name]["kernel"]).T)
+            sd[f"layers.{i}.{name}.bias"] = _t(lp[name]["bias"])
+        for name in ("att_ln", "ff_ln"):
+            sd[f"layers.{i}.{name}.weight"] = _t(lp[name]["scale"])
+            sd[f"layers.{i}.{name}.bias"] = _t(lp[name]["bias"])
+        i += 1
     return sd

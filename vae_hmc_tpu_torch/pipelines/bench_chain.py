@@ -1,19 +1,27 @@
 """The main path end to end: ``bench.py`` stages 1-4 on the port.
 
   1. synthetic waveforms -> log-mel features (kernel 1);
-  2. lyrics embeddings (hashed backend; MiniLM is not ported yet);
+  2. lyrics embeddings: the MiniLM transformer over every text by default
+     (``lyrics_backend="minilm"``, as ``bench.py``), with the real
+     checkpoint when VAE_HMC_MINILM_DIR names a directory and synthetic
+     real-shaped weights otherwise; ``lyrics_backend="hashed"`` is the
+     token-hash embedding (``BENCH_LYRICS=hashed``);
   3. conv multimodal VAE training and posterior-mean export;
   4. KMeans(k=6, n_init=10), then silhouette and Davies-Bouldin (kernel 2)
      and ARI against the synthetic genres.
-Stage boundaries synchronize the device, so each stage's seconds are its
-own; each stage also runs inside a ``stage:<name>`` profiler range (free
-when no profiler is on; tools/profile_chain.py reads them).  Returns the
-stage seconds, the quality numbers, the lyrics backend and the kernels'
-launches during the run.
+Building MiniLM, moving it to the device and one warm-up batch run before
+the timed stages, as in ``bench.py`` (model load is set-up).  Stage
+boundaries synchronize the device, so each stage's seconds are its own;
+each stage also runs inside a ``stage:<name>`` profiler range (free when no
+profiler is on; tools/profile_chain.py reads them).  Returns the stage
+seconds, the quality numbers, the lyrics backend, the kernels' launches
+during the run, and the tensors the run made (``"tensors"``: features,
+lyrics embedding, ``mu``, genre codes, track ids) for later stages.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict
 
@@ -30,16 +38,45 @@ from vae_hmc_tpu_torch.ops.kernels import build
 from vae_hmc_tpu_torch.pipelines import synthetic
 from vae_hmc_tpu_torch.pipelines.features import build_logmel
 from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
-from vae_hmc_tpu_torch.text import embed
+from vae_hmc_tpu_torch.text import embed, minilm
+
+MINILM_BATCH = 128              # texts per MiniLM forward (bench.py's)
+
+
+def _lyrics_encoder(backend: str, texts, dev):
+    """-> (backend name, encode(texts) -> (N, 384) tensor on `dev`)."""
+    if backend == "hashed":
+        return "hashed", lambda t: torch.as_tensor(
+            embed.hashed_embedding(t, 384), device=dev)
+    if backend != "minilm":
+        raise ValueError(f"lyrics_backend {backend!r}: 'minilm' or 'hashed'")
+    mdir = os.environ.get("VAE_HMC_MINILM_DIR")
+    if mdir and os.path.isdir(mdir):
+        model, tok = minilm.load_minilm(mdir, device=dev)
+        name = "minilm-torch (real checkpoint)"
+    else:
+        model, tok = minilm.synthetic_minilm(texts, device=dev)
+        name = "minilm-torch (synthetic real-shaped weights)"
+
+    def encode(t):
+        return minilm.encode_texts(model, tok, t, batch_size=MINILM_BATCH,
+                                   to_host=False)
+
+    encode(texts[:MINILM_BATCH])          # warm-up, outside the timed stages
+    return name, encode
+
 
 def run_core(n_tracks: int = 2924, epochs: int = 25, device="cuda",
              duration_s: float = 15.0, seed: int = 42,
-             device_batch: int = 128) -> Dict:
+             device_batch: int = 128, lyrics_backend: str = "minilm") -> Dict:
     dev = resolve_device(device)
-    launches0 = build.launch_counts()
     mel_cfg = MelConfig(duration_s=duration_s)
     vae_cfg = dataclasses.replace(ConvMMVaeConfig(), epochs=epochs, seed=seed)
     ds = synthetic.make_dataset(n_tracks, seed=seed, lyrics_coverage=0.9)
+    texts = [ds.lyrics[i] or "" for i in range(n_tracks)]
+    backend, encode_lyrics = _lyrics_encoder(lyrics_backend, texts, dev)
+    synchronize(dev)
+    launches0 = build.launch_counts()
 
     t0 = time.perf_counter()
     with record_function("stage:features"):
@@ -57,11 +94,9 @@ def run_core(n_tracks: int = 2924, epochs: int = 25, device="cuda",
     t1 = time.perf_counter()
 
     with record_function("stage:lyrics"):
-        texts = [ds.lyrics[i] or "" for i in range(n_tracks)]
         has = np.asarray([1.0 if ds.lyrics[i] else 0.0
                           for i in range(n_tracks)], np.float32)
-        lyr = torch.as_tensor(embed.hashed_embedding(texts, vae_cfg.lyrics_dim)
-                              * has[:, None], device=dev)
+        lyr = encode_lyrics(texts) * torch.as_tensor(has, device=dev)[:, None]
         synchronize(dev)
     t2 = time.perf_counter()
 
@@ -93,7 +128,7 @@ def run_core(n_tracks: int = 2924, epochs: int = 25, device="cuda",
         "seconds_lyrics": t2 - t1,
         "seconds_train": t3 - t2,
         "seconds_cluster_metrics": t4 - t3,
-        "lyrics_backend": embed.BACKEND,
+        "lyrics_backend": backend,
         "train_final_loss": history[-1]["total"],
         "history": history,
         "kmeans_inertia": km.inertia,
@@ -103,4 +138,6 @@ def run_core(n_tracks: int = 2924, epochs: int = 25, device="cuda",
         "ari_vs_genre": ari,
         "launches": launches,
         "device": str(dev),
+        "tensors": {"features": x_mel, "lyrics_embedding": lyr, "mu": mu,
+                    "genre_codes": genre_idx, "track_ids": ids},
     }

@@ -29,6 +29,9 @@ class SyntheticSource:
     def __len__(self):
         return len(self.track_ids)
 
+    def lyrics_text(self, i: int) -> Optional[str]:
+        return self.ds.lyrics[i]
+
     def waveforms(self, idx: Sequence[int], duration_s: float,
                   device: torch.device
                   ) -> Tuple[torch.Tensor, np.ndarray, List[Optional[str]]]:

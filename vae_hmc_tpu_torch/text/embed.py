@@ -1,21 +1,45 @@
-"""Hashed lyrics embedding (copy of ``vae_hmc_tpu.text.embed.hashed_embedding``).
+"""Lyrics embedding API with its backend chain (port of
+``vae_hmc_tpu.text.embed``).
 
-The deterministic 384-d token-hash bag embedding, L2-normalized: the JAX
-package's cheap lyrics backend (``bench.py`` with ``BENCH_LYRICS=hashed``).
-The MiniLM transformer backend is not ported yet; callers name the backend
-they used.
+Order, as in the JAX package (which mirrors the reference's
+sentence-transformers -> TF-IDF fallback, scripts/18:209-222):
+  1. MiniLM with local weights (env VAE_HMC_MINILM_DIR, an explicit
+     model_dir argument, or the HF cache) -> (M, 384) normalized — the
+     reference's scripts/11 behavior;
+  2. TF-IDF — not ported yet (the hard tier's backend, ROADMAP Queue 1
+     item 5): asking for it raises;
+  3. 'hashed': the deterministic 384-d token-hash bag embedding,
+     L2-normalized (a copy of the JAX package's), flagged in the returned
+     backend name.
 """
 from __future__ import annotations
 
 import hashlib
+import os
 import re
-from typing import List
+from pathlib import Path
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-BACKEND = "hashed"
+from vae_hmc_tpu_torch.core.config import TextEmbedConfig
 
 _TOKEN = re.compile(r"(?u)\b\w\w+\b")
+
+
+def _find_minilm_dir(cfg: TextEmbedConfig) -> Optional[Path]:
+    env = os.environ.get("VAE_HMC_MINILM_DIR")
+    if env and Path(env).exists():
+        return Path(env)
+    # HF cache layout
+    cache = Path(os.environ.get("HF_HOME", Path.home() / ".cache/huggingface"))
+    pat = cfg.model_name.replace("/", "--")
+    hub = cache / "hub" / f"models--{pat}" / "snapshots"
+    if hub.exists():
+        snaps = sorted(hub.iterdir())
+        if snaps:
+            return snaps[-1]
+    return None
 
 
 def hashed_embedding(texts: List[str], dim: int = 384) -> np.ndarray:
@@ -30,3 +54,27 @@ def hashed_embedding(texts: List[str], dim: int = 384) -> np.ndarray:
     norms = np.linalg.norm(out, axis=1, keepdims=True)
     norms[norms == 0.0] = 1.0
     return out / norms
+
+
+def embed_texts(texts: List[str], cfg: TextEmbedConfig = TextEmbedConfig(),
+                model_dir: Optional[Path] = None,
+                allow_tfidf: bool = True,
+                device="cuda") -> Tuple[np.ndarray, str]:
+    """-> (embeddings (M, D) f32 on the host, backend name).
+
+    MiniLM runs when a model directory is found; the chain falls through to
+    the next backend only when none is.  A directory that is found but
+    fails to load raises (the JAX package falls through on any error).
+    With no directory, allow_tfidf=True raises NotImplementedError (TF-IDF
+    is not ported yet) and allow_tfidf=False gives the hashed backend."""
+    mdir = Path(model_dir) if model_dir else _find_minilm_dir(cfg)
+    if mdir is not None:
+        from vae_hmc_tpu_torch.text.minilm import encode_texts_minilm
+        return encode_texts_minilm(list(texts), mdir, cfg.batch_size,
+                                   device=device), "minilm"
+    if allow_tfidf:
+        raise NotImplementedError(
+            "no MiniLM checkpoint found, and the TF-IDF backend is not ported "
+            "yet (ROADMAP Queue 1 item 5, hard tier); pass allow_tfidf=False "
+            "for the hashed backend")
+    return hashed_embedding(list(texts), cfg.embed_dim), "hashed"
