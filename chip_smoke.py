@@ -6,11 +6,12 @@
 Phases (any failure exits non-zero; no phase catches its own failure):
   1. identify the card and build the CUDA kernels from ``csrc/`` with nvcc
      (registers and spills from ptxas);
-  2. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at ragged ones, check that a NaN sample stays
-     non-finite through kernel 1 and that kernel 2's split-K result repeats
-     bit for bit, count launches per call, and time kernel, plain version
-     and a PyTorch library yardstick (CUDA graph replays, CUDA events);
+  2. hold each kernel against its plain PyTorch version on the card, at
+     every shape phases 3 and 4 give it and at ragged ones, check that a
+     NaN sample stays non-finite through kernel 1 and that kernel 2's
+     split-K result repeats bit for bit, count launches per call, and time
+     kernel, plain version and a PyTorch library yardstick (CUDA graph
+     replays, CUDA events);
   3. run the main path once at full model width (``run_core``: the medium
      tier's 2,924 synthetic 15 s tracks -> (128, 646) log-mel -> MiniLM
      lyrics embeddings (synthetic real-shaped weights) -> full ConvMMVAE,
@@ -174,6 +175,17 @@ def _spectrogram(n_tracks: int, cfg, dev):
                              power=cfg.power)
 
 
+def script11_rows() -> int:
+    """Rows of phase 4's lyrics representation: the main path's texts of
+    at least TextEmbedConfig.min_chars characters (script 11 skips the
+    others)."""
+    from vae_hmc_tpu_torch.core.config import TextEmbedConfig
+    from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
+    src = SyntheticSource.make(MAIN_TRACKS, seed=42)     # run_core's corpus
+    return sum(len((src.lyrics_text(i) or "").strip())
+               >= TextEmbedConfig().min_chars for i in range(len(src)))
+
+
 def phase_logmel(dev) -> dict:
     import torch
     from vae_hmc_tpu_torch.core.config import MelConfig
@@ -222,11 +234,17 @@ def phase_logmel(dev) -> dict:
     log("  NaN in sample 2: its features are non-finite, the others finite")
 
     cfg = MelConfig()
-    spec = _spectrogram(DEVICE_BATCH, cfg, dev)
     fb = mel_ops.mel_filterbank_tensor(cfg, dev)
     bands = mel_ops.filterbank_bands_tensor(cfg, dev)
     weights = mel_ops.filterbank_weights_tensor(cfg, dev)
     kw = dict(top_db=mel_ops.effective_top_db(cfg), standardize=True)
+    last = MAIN_TRACKS % DEVICE_BATCH      # the main path's partial batch
+    spec = _spectrogram(last, cfg, dev)
+    max_err = max(max_err, check_close(
+        f"B={last} main-path last batch",
+        mel_db_standardize(spec, fb, bands=bands, weights=weights, **kw),
+        mel_db_standardize_plain(spec, fb, **kw), 1e-4))
+    spec = _spectrogram(DEVICE_BATCH, cfg, dev)
     build.reset_launch_counts()
     got = mel_db_standardize(spec, fb, bands=bands, weights=weights, **kw)
     per_call = build.launch_counts()["mel_db_standardize"]
@@ -267,7 +285,7 @@ def phase_logmel(dev) -> dict:
             "shape": [b, f, t, m]}
 
 
-def phase_distance(dev) -> dict:
+def phase_distance(dev, lyrics_rows: int) -> dict:
     import torch
     from vae_hmc_tpu_torch.ops.kernels import build
     from vae_hmc_tpu_torch.ops.kernels.distance import (
@@ -282,23 +300,27 @@ def phase_distance(dev) -> dict:
         x = torch.randn((n, d), generator=gen, device=dev)
         return (x - x.mean(dim=0, keepdim=True)).contiguous()
 
+    # every shape the main path and scripts 13/16 give kernel 2: the
+    # silhouette / latents cache, the lyrics cache (script 11's rows), the
+    # mel-flat cache, and the masked Davies-Bouldin's point -> centroid
+    # and centroid self-distances (k = 6 in run_core, k <= 8 for kmeans and
+    # ward in the sweep; DBSCAN's k follows the data, and every k <= 64 is
+    # one tile column, as here)
     max_err = 0.0
-    for what, (n, d), m in [("(1024, 32) self", (1024, 32), None),
-                            ("(1024, 32) x (6, 32) centroids", (1024, 32), 6),
-                            ("(6, 32) centroids self", (6, 32), None),
-                            ("(256, 82688) self, mel-flat", (256, 82688), None),
-                            ("(37, 17) ragged self", (37, 17), None),
-                            (f"({MAIN_TRACKS}, 384) self, lyrics sweep cache",
-                             (MAIN_TRACKS, 384), None),
-                            (f"({MAIN_TRACKS}, {MEL_FLAT}) x (8, {MEL_FLAT}) "
-                             "sweep DBI centroids", (MAIN_TRACKS, MEL_FLAT), 8),
-                            (f"({MAIN_TRACKS}, {MEL_FLAT}) self, mel-flat "
-                             "sweep cache", (MAIN_TRACKS, MEL_FLAT), None)]:
+    cases = [((MAIN_TRACKS, 32), None), ((MAIN_TRACKS, 32), 6),
+             ((6, 32), None), ((MAIN_TRACKS, 32), 8), ((8, 32), None),
+             ((lyrics_rows, 384), None), ((lyrics_rows, 384), 8),
+             ((8, 384), None),
+             ((MAIN_TRACKS, MEL_FLAT), None), ((MAIN_TRACKS, MEL_FLAT), 8),
+             ((8, MEL_FLAT), None),
+             ((256, MEL_FLAT), None), ((37, 17), None)]
+    for (n, d), m in cases:
         x = centred(n, d)
         y = None if m is None else centred(m, d)
         got = pairwise_dists(x, y)
         want = pairwise_dists_plain(x, y)
         torch.cuda.synchronize()
+        what = f"({n}, {d}) " + ("self" if m is None else f"x ({m}, {d})")
         max_err = max(max_err, check_close(what, got, want, 1e-2, 1e-4))
         del x, y, got, want
 
@@ -311,8 +333,7 @@ def phase_distance(dev) -> dict:
     log("  split-K (70, 20000) self: two calls bit-identical")
 
     sms_blocks = occupancy(dev)        # (SMs, tile blocks resident per SM)
-    for n, m, d in ((1024, None, 32), (1024, 6, 32), (6, None, 32),
-                    (256, None, 82688), (MAIN_TRACKS, None, MEL_FLAT)):
+    for (n, d), m in cases:
         xa, ya = centred(n, d), (None if m is None else centred(m, d))
         build.reset_launch_counts()
         pairwise_dists(xa, ya)
@@ -372,7 +393,8 @@ def phase_distance(dev) -> dict:
 
 
 def phase_main_path(dev):
-    """-> (the kernels' launches in run_core, run_core's tensors)."""
+    """-> (the kernels' launches in run_core, run_core's tensors, its
+    corpus)."""
     import torch
     from vae_hmc_tpu_torch.ops.kernels import build
     from vae_hmc_tpu_torch.pipelines.bench_chain import run_core
@@ -417,7 +439,7 @@ def phase_main_path(dev):
     for name, count in launches.items():
         if count <= 0:
             fail(f"kernel {name} was not launched on the main path")
-    return launches, res["tensors"]
+    return launches, res["tensors"], res["source"]
 
 
 # the JAX package's CSV headers of scripts 13 and 16
@@ -428,14 +450,15 @@ HDR16 = ["representation", "algo", "params", "n_clusters_found", "n_noise",
          "noise_frac", "silhouette", "davies_bouldin", "ari", "score"]
 
 
-def phase_medium_sweep(dev, tensors) -> dict:
-    """Scripts 11, 13 and 16 on phase 3's tensors, into a temporary
-    workspace."""
+def phase_medium_sweep(dev, tensors, source, lyrics_rows: int) -> dict:
+    """Scripts 11, 13 and 16 on phase 3's tensors and corpus, into a
+    temporary workspace."""
     import csv
     import tempfile
     import torch
+    from vae_hmc_tpu_torch.core.config import Workspace
     from vae_hmc_tpu_torch.ops.kernels import build
-    from vae_hmc_tpu_torch.tools.profile_chain import scripts_11_13_16
+    from vae_hmc_tpu_torch.pipelines.medium import scripts_11_13_16
 
     log("medium tier scripts 11, 13 and 16 on the main path's tensors")
     headers = {}
@@ -443,7 +466,9 @@ def phase_medium_sweep(dev, tensors) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         build.reset_launch_counts()
-        out = scripts_11_13_16(dev, tensors, Path(root))
+        out = scripts_11_13_16(source, Workspace(root), tensors["mu"],
+                               tensors["features"], tensors["track_ids"],
+                               device=dev)
         launches = build.launch_counts()
         peak = torch.cuda.max_memory_allocated(dev)
         for name in ("medium_clustering_metrics_all.csv",
@@ -471,6 +496,10 @@ def phase_medium_sweep(dev, tensors) -> dict:
             f"{r['params']:14s} n={r['n_clusters_found']} noise={r['n_noise']}"
             f" sil={r['silhouette']} dbi={r['davies_bouldin']} ari={r['ari']}")
 
+    shapes = [tuple(r.x_dev.shape) for r in out["reps"]]
+    if shapes != [(MAIN_TRACKS, 32), (MAIN_TRACKS, MEL_FLAT),
+                  (lyrics_rows, 384)]:
+        fail(f"representation shapes {shapes} are not those phase 2 checked")
     if len(rows13) != 21 or len(rows16) != 102:
         fail(f"{len(rows13)} suite rows and {len(rows16)} sweep rows, "
              "want 21 and 102")
@@ -501,9 +530,10 @@ def main() -> None:
     dev = resolve_device("cuda")
     t0 = time.perf_counter()
     smi = phase_identify_and_build()
-    kernels = [phase_logmel(dev), phase_distance(dev)]
-    launches, tensors = phase_main_path(dev)
-    sweep = phase_medium_sweep(dev, tensors)
+    lyrics_rows = script11_rows()
+    kernels = [phase_logmel(dev), phase_distance(dev, lyrics_rows)]
+    launches, tensors, source = phase_main_path(dev)
+    sweep = phase_medium_sweep(dev, tensors, source, lyrics_rows)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sweep_launches"] = sweep["launches"][k["name"]]

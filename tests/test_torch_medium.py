@@ -8,8 +8,9 @@
     atol 1e-4 (the JAX reference with its distance diagonal set to 0,
     ROADMAP parity rule 5; see tests/test_torch_cluster_sweep.py);
   - ``run_core`` with the MiniLM backend on a test-written checkpoint, and
-    its tensors feeding scripts 13 and 16 as ``chip_smoke.py`` does, at a
-    tiny size on the CPU.
+    its tensors and corpus feeding scripts 11, 13 and 16
+    (``scripts_11_13_16``) as ``chip_smoke.py`` does, at a tiny size on
+    the CPU.
 """
 import csv
 import math
@@ -195,7 +196,8 @@ def test_build_rep_standardizes_as_jax():
 def test_run_core_minilm_checkpoint_then_scripts_13_and_16(
         tmp_path, monkeypatch):
     """run_core's lyrics stage on a MiniLM checkpoint found through
-    VAE_HMC_MINILM_DIR, then its tensors through scripts 13 and 16."""
+    VAE_HMC_MINILM_DIR, then its tensors and corpus through scripts 11, 13
+    and 16."""
     from tests.test_torch_minilm import _hf_state_dict, _write_checkpoint
     from vae_hmc_tpu_torch.pipelines.bench_chain import run_core
     from vae_hmc_tpu_torch.text.minilm import MiniLMConfig, corpus_vocab
@@ -222,17 +224,24 @@ def test_run_core_minilm_checkpoint_then_scripts_13_and_16(
     torch.testing.assert_close(norms[has], torch.ones(int(has.sum())))
     assert math.isfinite(r["seconds_lyrics"])
 
-    genre_map = {int(i): str(g) for i, g in zip(src.track_ids, src.genres)}
     ws = Workspace(tmp_path / "ws")
-    lyr = medium.build_lyrics_embeddings(src, ws, device="cpu")
-    assert lyr["backend"] == "minilm"
-    arrays = {"vae_mm_latents": (t["mu"], t["track_ids"]),
-              "baseline_mel_flat": (t["features"], t["track_ids"]),
-              "baseline_lyrics_only": (lyr["emb"], lyr["ids"])}
-    reps = medium._load_reps(ws, genre_map, arrays=arrays, device="cpu")
+    out = medium.scripts_11_13_16(r["source"], ws, t["mu"], t["features"],
+                                  t["track_ids"], device="cpu")
+    assert out["lyrics_backend"] == "minilm"
+    reps, rows13, rows16 = out["reps"], out["rows13"], out["rows16"]
+    assert [rep.name for rep in reps] == ["vae_mm_latents",
+                                          "baseline_mel_flat",
+                                          "baseline_lyrics_only"]
     assert reps[1].x_dev.shape == (n, 128 * 44)
-    rows13 = medium.cluster_and_evaluate(ws, genre_map, 6, reps=reps)
-    rows16 = medium.full_clustering_sweep(ws, genre_map, reps=reps)
+    genre_map = {int(i): str(g) for i, g in zip(src.track_ids, src.genres)}
+    for rep in reps:                 # genres of run_core's own corpus
+        ids = t["track_ids"] if rep.name != "baseline_lyrics_only" else \
+            np.load(ws.data / "lyrics_track_ids.npy")
+        np.testing.assert_array_equal(rep.y_true,
+                                      [genre_map[int(i)] for i in ids])
+    assert sorted(out["seconds"]) == ["seconds_representations",
+                                      "seconds_script13", "seconds_script16",
+                                      "seconds_total"]
     assert len(rows13) == 21 and len(rows16) == 102
     for r in rows13 + rows16:
         if r["algo"] != "dbscan":

@@ -10,7 +10,8 @@
     and as ``model.safetensors`` into the same weights, and at full size
     embeds as the JAX loader does;
   - ``synthetic_minilm`` draws from the Flax initializers' distributions;
-  - ``embed_texts``'s backend chain.
+  - ``embed_texts``'s backend chain, and ``run_core``'s lyrics stage
+    finding its checkpoint through the same ``find_minilm_dir``.
 """
 import dataclasses
 
@@ -255,3 +256,33 @@ def test_embed_texts_backend_chain(tmp_path, monkeypatch, full_checkpoint):
     (broken / "vocab.txt").write_text("\n".join(VOCAB))
     with pytest.raises(FileNotFoundError):
         embed.embed_texts(texts, model_dir=broken, device="cpu")
+
+
+def test_run_core_and_script_11_find_the_same_checkpoint(
+        tmp_path, monkeypatch, full_checkpoint):
+    """run_core's lyrics stage and embed_texts (script 11) look for weights
+    through the one function find_minilm_dir: a checkpoint in the HF cache
+    is found by both and embeds alike; without one, run_core takes
+    synthetic weights and embed_texts the hashed backend."""
+    from vae_hmc_tpu_torch.pipelines.bench_chain import _lyrics_encoder
+    monkeypatch.delenv("VAE_HMC_MINILM_DIR", raising=False)
+    texts = ["the cats sat in the rain", "Hello, World!"]
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "no_hf_cache"))
+    assert embed.find_minilm_dir() is None
+    name, _ = _lyrics_encoder("minilm", texts, torch.device("cpu"))
+    assert name == "minilm-torch (synthetic real-shaped weights)"
+    assert embed.embed_texts(texts, allow_tfidf=False,
+                             device="cpu")[1] == "hashed"
+
+    hf = tmp_path / "hf"
+    model = tconfig.TextEmbedConfig().model_name.replace("/", "--")
+    snaps = hf / "hub" / f"models--{model}" / "snapshots"
+    snaps.mkdir(parents=True)
+    (snaps / "0123abcd").symlink_to(full_checkpoint, target_is_directory=True)
+    monkeypatch.setenv("HF_HOME", str(hf))
+    assert embed.find_minilm_dir() == snaps / "0123abcd"
+    name, encode = _lyrics_encoder("minilm", texts, torch.device("cpu"))
+    assert name == "minilm-torch (real checkpoint)"
+    emb, backend = embed.embed_texts(texts, device="cpu")
+    assert backend == "minilm"
+    np.testing.assert_allclose(encode(texts).numpy(), emb, rtol=0, atol=1e-6)

@@ -40,10 +40,11 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def test_run_core_on_cpu(monkeypatch):
+def test_run_core_on_cpu(tmp_path, monkeypatch):
     """The default lyrics backend: MiniLM, on synthetic real-shaped weights
-    when no checkpoint directory is set."""
+    when no checkpoint directory is found."""
     monkeypatch.delenv("VAE_HMC_MINILM_DIR", raising=False)
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "no_hf_cache"))
     r = run_core(n_tracks=32, epochs=1, device="cpu", duration_s=1.0,
                  device_batch=16)
     assert r["feature_shape"] == [32, 128, 44, 1]
@@ -71,6 +72,20 @@ def test_run_core_hashed_lyrics_backend():
     with pytest.raises(ValueError, match="lyrics_backend"):
         run_core(n_tracks=16, epochs=1, device="cpu", duration_s=0.5,
                  lyrics_backend="tfidf")
+
+
+def test_run_core_returns_its_corpus():
+    """The source run_core returns is the corpus of its own seed, so later
+    stages score against the genres the run trained on."""
+    r = run_core(n_tracks=16, epochs=1, device="cpu", duration_s=0.5,
+                 device_batch=16, seed=5, lyrics_backend="hashed")
+    ds = tsyn.make_dataset(16, seed=5, lyrics_coverage=0.9)
+    src = r["source"]
+    assert src.seed == 5 and src.ds.lyrics == ds.lyrics
+    np.testing.assert_array_equal(src.track_ids, r["tensors"]["track_ids"])
+    np.testing.assert_array_equal(
+        r["tensors"]["genre_codes"],
+        [tsyn.GENRES.index(g) for g in src.genres])
 
 
 def test_dataset_and_recipes_copied_exactly():

@@ -17,9 +17,9 @@ error, a kernel's or CUDA's included, propagates.
 """
 from __future__ import annotations
 
-import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,36 +36,17 @@ from vae_hmc_tpu_torch.metrics.safe import (n_effective_clusters,
 from vae_hmc_tpu_torch.ops.kernels.distance import pairwise_dists
 
 
-class _Task:
-    """fn() on a daemon thread; result() waits for it and re-raises its
-    error in the caller."""
-
-    def __init__(self, fn: Callable):
-        self._out = None
-        self._exc: Optional[Exception] = None
-        self._thread = threading.Thread(target=self._run, args=(fn,),
-                                        daemon=True)
-        self._thread.start()
-
-    def _run(self, fn: Callable) -> None:
-        try:
-            self._out = fn()
-        except Exception as e:      # handed to the caller by result()
-            self._exc = e
-
-    def result(self):
-        self._thread.join()
-        if self._exc is not None:
-            raise self._exc
-        return self._out
+# host work of the sweep (distance copies, ward linkages); FIFO, so a task
+# only ever waits on one submitted before it
+_POOL = ThreadPoolExecutor(max_workers=8, thread_name_prefix="sweep")
 
 
-def _host_copy(t: torch.Tensor) -> _Task:
+def _host_copy(t: torch.Tensor) -> Future:
     """Fetch `t` to the host on a thread.  An event recorded on the
     producer's stream orders the copy after the kernel that wrote `t`,
     whatever stream the thread's copy runs on."""
     if t.device.type != "cuda":
-        return _Task(t.numpy)
+        return _POOL.submit(t.numpy)
     done = torch.cuda.Event()
     done.record()
 
@@ -73,7 +54,7 @@ def _host_copy(t: torch.Tensor) -> _Task:
         done.synchronize()
         return t.cpu().numpy()
 
-    return _Task(fetch)
+    return _POOL.submit(fetch)
 
 
 @dataclass
@@ -99,8 +80,8 @@ class RepData:
     x_dev: torch.Tensor
     xc_dev: torch.Tensor
     dists_dev: torch.Tensor
-    _dists_task: _Task
-    _ward_task: Optional[_Task] = None
+    _dists_task: Future
+    _ward_task: Optional[Future] = None
     _kmeans_cache: Dict = field(default_factory=dict)
 
     @classmethod
@@ -129,7 +110,7 @@ class RepData:
         the GIL, so the host work overlaps the device cells that the sweep
         launches meanwhile; ward_merges() waits for it."""
         if self._ward_task is None:
-            self._ward_task = _Task(lambda: ward_linkage_from_sq_dists(
+            self._ward_task = _POOL.submit(lambda: ward_linkage_from_sq_dists(
                 self.dists.astype(np.float64) ** 2))
 
     def ward_merges(self) -> np.ndarray:

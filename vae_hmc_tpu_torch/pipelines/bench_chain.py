@@ -3,8 +3,9 @@
   1. synthetic waveforms -> log-mel features (kernel 1);
   2. lyrics embeddings: the MiniLM transformer over every text by default
      (``lyrics_backend="minilm"``, as ``bench.py``), with the real
-     checkpoint when VAE_HMC_MINILM_DIR names a directory and synthetic
-     real-shaped weights otherwise; ``lyrics_backend="hashed"`` is the
+     checkpoint where ``text.embed.find_minilm_dir`` finds one
+     (VAE_HMC_MINILM_DIR or the HF cache) and synthetic real-shaped
+     weights otherwise; ``lyrics_backend="hashed"`` is the
      token-hash embedding (``BENCH_LYRICS=hashed``);
   3. conv multimodal VAE training and posterior-mean export;
   4. KMeans(k=6, n_init=10), then silhouette and Davies-Bouldin (kernel 2)
@@ -15,13 +16,13 @@ boundaries synchronize the device, so each stage's seconds are its own;
 each stage also runs inside a ``stage:<name>`` profiler range (free when no
 profiler is on; tools/profile_chain.py reads them).  Returns the stage
 seconds, the quality numbers, the lyrics backend, the kernels' launches
-during the run, and the tensors the run made (``"tensors"``: features,
-lyrics embedding, ``mu``, genre codes, track ids) for later stages.
+during the run, the tensors the run made (``"tensors"``: features,
+lyrics embedding, ``mu``, genre codes, track ids) and its corpus
+(``"source"``) for later stages (``pipelines.medium.scripts_11_13_16``).
 """
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from typing import Dict
 
@@ -50,8 +51,8 @@ def _lyrics_encoder(backend: str, texts, dev):
             embed.hashed_embedding(t, 384), device=dev)
     if backend != "minilm":
         raise ValueError(f"lyrics_backend {backend!r}: 'minilm' or 'hashed'")
-    mdir = os.environ.get("VAE_HMC_MINILM_DIR")
-    if mdir and os.path.isdir(mdir):
+    mdir = embed.find_minilm_dir()
+    if mdir is not None:
         model, tok = minilm.load_minilm(mdir, device=dev)
         name = "minilm-torch (real checkpoint)"
     else:
@@ -80,8 +81,9 @@ def run_core(n_tracks: int = 2924, epochs: int = 25, device="cuda",
 
     t0 = time.perf_counter()
     with record_function("stage:features"):
-        x_mel, ids, report = build_logmel(SyntheticSource(ds, seed=seed),
-                                          mel_cfg, device_batch=device_batch,
+        source = SyntheticSource(ds, seed=seed)
+        x_mel, ids, report = build_logmel(source, mel_cfg,
+                                          device_batch=device_batch,
                                           device=dev)
         if len(ids) != n_tracks:
             # the lyrics/genre arrays below follow the full track list: a
@@ -140,4 +142,5 @@ def run_core(n_tracks: int = 2924, epochs: int = 25, device="cuda",
         "device": str(dev),
         "tensors": {"features": x_mel, "lyrics_embedding": lyr, "mu": mu,
                     "genre_codes": genre_idx, "track_ids": ids},
+        "source": source,
     }

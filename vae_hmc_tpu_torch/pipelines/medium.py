@@ -12,16 +12,20 @@ Writes the reference's artifact contract for these stages:
 
 Scripts 13 and 16 share one ``RepData`` per representation (its kernel 2
 distance matrix, host copy and ward linkage), as ``run_medium_pipeline``
-chains them in the JAX package.  Scripts 10, 12, 14, 15 and 17 and the
-pipeline runner are not ported yet (ROADMAP Queue 1 item 3).
+chains them in the JAX package; ``scripts_11_13_16`` chains 11, 13 and 16
+on the tensors of ``pipelines.bench_chain.run_core``.  Scripts 10, 12, 14,
+15 and 17 and the pipeline runner are not ported yet (ROADMAP Queue 1
+item 3).
 """
 from __future__ import annotations
 
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from vae_hmc_tpu_torch.cluster import sweep as sweep_mod
 from vae_hmc_tpu_torch.cluster.sweep import RepData
@@ -29,6 +33,7 @@ from vae_hmc_tpu_torch.core import artifacts
 from vae_hmc_tpu_torch.core.align import labels_for_ids
 from vae_hmc_tpu_torch.core.config import (SweepConfig, TextEmbedConfig,
                                            Workspace)
+from vae_hmc_tpu_torch.core.device import resolve_device, synchronize
 from vae_hmc_tpu_torch.ops.scaler import StandardScaler
 
 
@@ -193,3 +198,43 @@ def full_clustering_sweep(ws: Workspace, genre_map: Optional[Dict] = None,
     _rows_to_csv(by_score[:20],
                  ws.results / "medium_full_sweep_best_overall.csv", _HDR16)
     return rows
+
+
+def scripts_11_13_16(source, ws: Workspace, mu: torch.Tensor,
+                     features: torch.Tensor, ids: np.ndarray,
+                     n_clusters: int = 6, cfg: SweepConfig = SweepConfig(),
+                     device="cuda") -> Dict:
+    """Scripts 11, 13 and 16 on the outputs of a run over `source`: the
+    posterior means `mu` (N, latent) and log-mel `features` of the tracks
+    `ids` (``run_core``'s ``"tensors"``, with its ``"source"``), the lyrics
+    embedded from `source`, genres from `source`.  One RepData per
+    representation is shared by 13 and 16.  Each script runs in a
+    ``stage:<name>`` profiler range and ends in a synchronize.
+    -> {"seconds", "rows13", "rows16", "reps", "lyrics_backend"}."""
+    dev = resolve_device(device)
+    genre_map = {int(i): str(g) for i, g in zip(source.track_ids,
+                                                source.genres)}
+    t = [time.perf_counter()]
+    with record_function("stage:representations"):
+        lyr = build_lyrics_embeddings(source, ws, device=dev)
+        reps = _load_reps(ws, genre_map, arrays={
+            "vae_mm_latents": (mu, ids),
+            "baseline_mel_flat": (features, ids),
+            "baseline_lyrics_only": (lyr["emb"], lyr["ids"])}, device=dev)
+        synchronize(dev)
+    t.append(time.perf_counter())
+    with record_function("stage:script13"):
+        rows13 = cluster_and_evaluate(ws, genre_map, n_clusters, reps=reps,
+                                      device=dev)
+        synchronize(dev)
+    t.append(time.perf_counter())
+    with record_function("stage:script16"):
+        rows16 = full_clustering_sweep(ws, genre_map, cfg, reps=reps,
+                                       device=dev)
+        synchronize(dev)
+    t.append(time.perf_counter())
+    names = ("seconds_representations", "seconds_script13", "seconds_script16")
+    seconds = {k: t[i + 1] - t[i] for i, k in enumerate(names)}
+    seconds["seconds_total"] = t[-1] - t[0]
+    return {"seconds": seconds, "rows13": rows13, "rows16": rows16,
+            "reps": reps, "lyrics_backend": lyr["backend"]}

@@ -27,7 +27,11 @@ from vae_hmc_tpu_torch.core.config import TextEmbedConfig
 _TOKEN = re.compile(r"(?u)\b\w\w+\b")
 
 
-def _find_minilm_dir(cfg: TextEmbedConfig) -> Optional[Path]:
+def find_minilm_dir(cfg: TextEmbedConfig = TextEmbedConfig()
+                    ) -> Optional[Path]:
+    """The MiniLM checkpoint directory: VAE_HMC_MINILM_DIR when it names an
+    existing path, else the newest HF-cache snapshot of cfg.model_name,
+    else None.  The one place the port looks for weights."""
     env = os.environ.get("VAE_HMC_MINILM_DIR")
     if env and Path(env).exists():
         return Path(env)
@@ -67,7 +71,7 @@ def embed_texts(texts: List[str], cfg: TextEmbedConfig = TextEmbedConfig(),
     fails to load raises (the JAX package falls through on any error).
     With no directory, allow_tfidf=True raises NotImplementedError (TF-IDF
     is not ported yet) and allow_tfidf=False gives the hashed backend."""
-    mdir = Path(model_dir) if model_dir else _find_minilm_dir(cfg)
+    mdir = Path(model_dir) if model_dir else find_minilm_dir(cfg)
     if mdir is not None:
         from vae_hmc_tpu_torch.text.minilm import encode_texts_minilm
         return encode_texts_minilm(list(texts), mdir, cfg.batch_size,

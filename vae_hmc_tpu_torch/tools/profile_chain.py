@@ -11,26 +11,23 @@ warm run: the stage seconds; host ops by self time; each stage's device
 time (the kernels launched inside its ``stage:*`` range); the device's busy
 time and idle share over the run; and device time by kernel.  Then, with
 the same breakdown, the medium tier's scripts 11, 13 and 16 on that run's
-tensors (``chip_smoke.py`` phase 4).  Needs a GPU.
+tensors (``pipelines.medium.scripts_11_13_16``, as ``chip_smoke.py``
+phase 4).  Needs a GPU.
 """
 from __future__ import annotations
 
 import json
 import subprocess
 import tempfile
-import time
-from pathlib import Path
-from typing import Dict
 
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from vae_hmc_tpu_torch.core.config import SweepConfig, Workspace
-from vae_hmc_tpu_torch.core.device import resolve_device, synchronize
+from vae_hmc_tpu_torch.core.config import Workspace
+from vae_hmc_tpu_torch.core.device import resolve_device
 from vae_hmc_tpu_torch.ops.kernels import build
 from vae_hmc_tpu_torch.pipelines import medium
 from vae_hmc_tpu_torch.pipelines.bench_chain import run_core
-from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
 
 N_TRACKS = 2924
 EPOCHS = 1
@@ -67,44 +64,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as root, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         build.reset_launch_counts()
-        out = scripts_11_13_16(dev, res["tensors"], Path(root))
+        t = res["tensors"]
+        out = medium.scripts_11_13_16(res["source"], Workspace(root), t["mu"],
+                                      t["features"], t["track_ids"],
+                                      device=dev)
     _report(prof, out["seconds"], build.launch_counts(),
             out["seconds"]["seconds_total"], TOP)
-
-
-def scripts_11_13_16(dev, tensors, root: Path) -> Dict:
-    """The medium tier's scripts 11, 13 and 16 on ``run_core``'s tensors
-    (its corpus: synthetic, seed 42), writing into ``Workspace(root)``, each
-    in a ``stage:*`` range and ending in a synchronize.  -> {"seconds",
-    "rows13", "rows16", "reps", "lyrics_backend"}."""
-    ids = tensors["track_ids"]
-    src = SyntheticSource.make(len(ids), seed=42)
-    genre_map = {int(i): str(g) for i, g in zip(src.track_ids, src.genres)}
-    ws = Workspace(root)
-    t = [time.perf_counter()]
-    with record_function("stage:representations"):
-        lyr = medium.build_lyrics_embeddings(src, ws, device=dev)
-        reps = medium._load_reps(ws, genre_map, arrays={
-            "vae_mm_latents": (tensors["mu"], ids),
-            "baseline_mel_flat": (tensors["features"], ids),
-            "baseline_lyrics_only": (lyr["emb"], lyr["ids"])}, device=dev)
-        synchronize(dev)
-    t.append(time.perf_counter())
-    with record_function("stage:script13"):
-        rows13 = medium.cluster_and_evaluate(ws, genre_map, 6, reps=reps,
-                                             device=dev)
-        synchronize(dev)
-    t.append(time.perf_counter())
-    with record_function("stage:script16"):
-        rows16 = medium.full_clustering_sweep(ws, genre_map, SweepConfig(),
-                                              reps=reps, device=dev)
-        synchronize(dev)
-    t.append(time.perf_counter())
-    names = ("seconds_representations", "seconds_script13", "seconds_script16")
-    seconds = {k: t[i + 1] - t[i] for i, k in enumerate(names)}
-    seconds["seconds_total"] = t[-1] - t[0]
-    return {"seconds": seconds, "rows13": rows13, "rows16": rows16,
-            "reps": reps, "lyrics_backend": lyr["backend"]}
 
 
 def _report(prof, seconds, launches, wall_s: float, top: int) -> None:
