@@ -22,7 +22,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      representations (latents (2924, 32), mel-flat (2924, 82,688), lyrics
      embeddings), the clustering suite (21 rows) and the 102-cell sweep,
      every distance from kernel 2, with the launch counters reset just
-     before and read just after.
+     before and read just after;
+  5. PCA(2) and t-SNE's perplexity-searched P on the card against the CPU
+     for one small input; then the whole medium tier,
+     ``run_medium_pipeline`` (scripts 10 -> 11 -> 12 -> 13 -> 16 -> 17,
+     then 14 and 15 with PCA and UMAP) at the same full width into a
+     temporary workspace, with the launch counters reset just before and
+     read just after, and script 14 with t-SNE on its latents; it checks
+     the tier's file contract (figures as .png, or as .npz data where
+     matplotlib is missing), the CSV headers, 21 and 102 rows and every
+     embedding's (N, 2) shape, and prints the stage seconds of
+     ``timing_medium.json``, the launches and the peak device memory.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the port beside it, the script exits non-zero and prints no result.
@@ -520,6 +530,185 @@ def phase_medium_sweep(dev, tensors, source, lyrics_rows: int) -> dict:
     return {**sec, "launches": launches, "peak_bytes": peak}
 
 
+# the medium tier's file contract (the JAX package's
+# tests/test_medium_pipeline.py list, script 14's files, the checkpoint,
+# script 17's plots and the timing file); a figure is its .png or, without
+# matplotlib, its data as .npz of the same stem
+PIPELINE_FILES = [
+    "data/audio_cnn_mel_X.npy", "data/audio_cnn_mel_track_ids.npy",
+    "results/audio_cnn_mel_build_report.csv",
+    "data/lyrics_embeddings.npy", "data/lyrics_track_ids.npy",
+    "results/lyrics_embedding_report.csv",
+    "results/vae_conv_mm_medium/train_log.csv",
+    "results/vae_conv_mm_medium/ckpt_epoch_001.pt",
+    "results/vae_conv_mm_medium/ckpt_epoch_001.pt.meta.json",
+    "data/vae_mm_latents_mu.npy", "data/vae_mm_latents_track_ids.npy",
+    "results/medium_clustering_metrics_all.csv",
+    "results/medium_full_sweep_metrics.csv",
+    "results/medium_full_sweep_best_by_representation.csv",
+    "results/medium_full_sweep_best_overall.csv",
+    "results/report_medium/best_filtered.csv",
+    "results/report_medium/best_filtered_by_representation.csv",
+    "results/report_medium/plot_silhouette.png",
+    "results/report_medium/plot_davies_bouldin.png",
+    "results/report_medium/plot_ari.png",
+    "results/report_medium/dbscan_noise_vs_eps_baseline_lyrics_only.png",
+    "results/report_medium/dbscan_clusters_vs_eps_baseline_mel_flat.png",
+    "results/cluster_viz/vae_kmeans6_vae_mm_latents_mu_kmeans_pca_clusters.png",
+    "results/cluster_viz/vae_kmeans6_vae_mm_latents_mu_kmeans_pca_truegenre.png",
+    "results/cluster_viz/vae_kmeans6_vae_mm_latents_mu_kmeans_pca_summary.txt",
+    "results/cluster_viz/side_by_side_medium.png",
+    "results/cluster_viz/lyrics_dbscan_eps_sweep_clusters_medium.png",
+    "results/cluster_viz/lyrics_dbscan_eps_sweep_noise_medium.png",
+    "results/timing_medium.json",
+]
+
+
+def _finite_2d(what: str, xy, n: int) -> None:
+    import numpy as np
+    xy = np.asarray(xy)
+    if xy.shape != (n, 2) or not np.isfinite(xy).all():
+        fail(f"{what}: shape {xy.shape} (want ({n}, 2)) or non-finite")
+
+
+def phase_viz_on_card(dev) -> None:
+    """PCA(2) and t-SNE's perplexity-searched P on the card against the
+    same functions on the CPU, for one small input."""
+    import numpy as np
+    import torch
+    from vae_hmc_tpu_torch.ops.pca import PCA
+    from vae_hmc_tpu_torch.viz import tsne
+    log("PCA(2) and t-SNE's P on the card against the CPU")
+    x = np.random.default_rng(11).normal(0, 1, (300, 40)).astype(np.float32)
+    x[:, :3] *= (4.0, 3.0, 2.0)          # separated leading components
+    got = PCA(2, device=dev).fit_transform(x).cpu()
+    want = PCA(2, device="cpu").fit_transform(x)
+    check_close("PCA(2) of (300, 40)", got, want, 1e-4)
+    xt = torch.from_numpy(x)
+    got = tsne._binary_search_perplexity(tsne.input_sq_dists(xt.to(dev)),
+                                         30.0).cpu()
+    want = tsne._binary_search_perplexity(tsne.input_sq_dists(xt), 30.0)
+    check_close("t-SNE P of (300, 40), perplexity 30", got, want, 1e-5)
+
+
+def phase_medium_pipeline(dev, lyrics_rows: int) -> dict:
+    """run_medium_pipeline end to end at full width into a temporary
+    workspace (scripts 10-17 with visualizations), then script 14 with
+    t-SNE on its latents."""
+    import csv
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from vae_hmc_tpu_torch.core.config import (ConvMMVaeConfig, MelConfig,
+                                               SweepConfig, TextEmbedConfig,
+                                               Workspace)
+    from vae_hmc_tpu_torch.ops.kernels import build
+    from vae_hmc_tpu_torch.pipelines import medium
+    from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
+
+    log(f"medium tier end to end: run_medium_pipeline({MAIN_TRACKS} tracks, "
+        f"{MAIN_EPOCHS} epoch) at full model width, with visualizations")
+    source = SyntheticSource.make(MAIN_TRACKS, seed=42)      # run_core's corpus
+    vae_cfg = dataclasses.replace(ConvMMVaeConfig(), epochs=MAIN_EPOCHS)
+    with tempfile.TemporaryDirectory() as root:
+        ws = Workspace(root)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = medium.run_medium_pipeline(
+            source, ws, MelConfig(), TextEmbedConfig(), vae_cfg, SweepConfig(),
+            with_viz=True, device_batch=DEVICE_BATCH, write_mel_features=True,
+            device=dev)
+        wall = time.perf_counter() - t0
+        launches = build.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        timing = json.loads((ws.results / "timing_medium.json").read_text())
+
+        log("script 14 with t-SNE on the latents (1,500 iterations)")
+        genre_map = {int(t): str(g) for t, g in zip(source.track_ids,
+                                                    source.genres)}
+        build.reset_launch_counts()
+        t1 = time.perf_counter()
+        viz_tsne = medium.visualize_clustering(
+            ws, ws.data / "vae_mm_latents_mu.npy",
+            ws.data / "vae_mm_latents_track_ids.npy", genre_map,
+            method="kmeans", n_clusters=6, proj="tsne", tag="vae_kmeans6",
+            x_arr=out["train"]["latents"], ids_arr=out["train"]["ids"],
+            yhat_arr=out["viz14"]["labels"], device=dev)
+        torch.cuda.synchronize()
+        tsne_s = time.perf_counter() - t1
+        tsne_launches = build.launch_counts()
+
+        kind = out["figures"]
+        files = PIPELINE_FILES + [
+            "results/cluster_viz/vae_kmeans6_vae_mm_latents_mu_kmeans_tsne_"
+            "clusters.png"]
+        for rel in files:
+            path = Path(root) / rel
+            if path.suffix == ".png" and kind == "npz":
+                path = path.with_suffix(".npz")
+            if not path.exists():
+                fail(f"run_medium_pipeline did not write {path.name}")
+        headers, lines = {}, {}
+        for name in ("medium_clustering_metrics_all.csv",
+                     "medium_full_sweep_metrics.csv",
+                     "medium_full_sweep_best_by_representation.csv",
+                     "medium_full_sweep_best_overall.csv",
+                     "report_medium/best_filtered.csv",
+                     "report_medium/best_filtered_by_representation.csv"):
+            with open(ws.results / name, newline="") as f:
+                rows = list(csv.reader(f))
+            headers[name], lines[name] = rows[0], len(rows) - 1
+        mel = np.load(ws.data / "audio_cnn_mel_X.npy", mmap_mode="r")
+        mel_shape = tuple(mel.shape)
+        del mel
+
+    sec = timing["seconds"]
+    log("  stage seconds (timing_medium.json; each stage ends in a "
+        "synchronize): " + ", ".join(f"{k} {v:.3f}" for k, v in sec.items()))
+    log(f"  total {timing['total_seconds']:.3f} s of stages, "
+        f"{wall:.3f} s wall; script 14 with t-SNE {tsne_s:.3f} s")
+    log(f"  kernels: {json.dumps(launches)}; t-SNE's script 14: "
+        f"{json.dumps(tsne_launches)}")
+    log(f"  peak device memory {peak / 2**30:.3f} GiB")
+    log(f"  figures written as {kind} (matplotlib "
+        f"{'present' if kind == 'png' else 'not installed'})")
+    log(f"  rows: script 13 {len(out['suite'])}, script 16 "
+        f"{len(out['sweep'])}; quality drift {out['quality_drift']['status']}"
+        f" ({out['quality_drift']['key']}); train loss "
+        f"{out['train']['history'][-1]['total']:.5f}")
+
+    if mel_shape != (MAIN_TRACKS, 1, 128, 646):
+        fail(f"audio_cnn_mel_X.npy shape {mel_shape}")
+    if len(out["suite"]) != 21 or len(out["sweep"]) != 102 or \
+            lines["medium_clustering_metrics_all.csv"] != 21 or \
+            lines["medium_full_sweep_metrics.csv"] != 102:
+        fail(f"{len(out['suite'])} suite rows and {len(out['sweep'])} sweep "
+             f"rows ({lines}), want 21 and 102")
+    for name, header in headers.items():
+        want = HDR13 if name == "medium_clustering_metrics_all.csv" else HDR16
+        if header != want:
+            fail(f"{name} header {header} != {want}")
+    emb = out["viz15"]["embeddings"]
+    for kind_, xys in emb.items():
+        for xy, n, rep in zip(xys, (MAIN_TRACKS, MAIN_TRACKS, lyrics_rows),
+                              ("latents", "mel-flat", "lyrics")):
+            _finite_2d(f"script 15 {kind_.upper()} of the {rep}", xy, n)
+    _finite_2d("script 14 PCA", out["viz14"]["xy"], MAIN_TRACKS)
+    _finite_2d("script 14 t-SNE", viz_tsne["xy"], MAIN_TRACKS)
+    if out["quality_drift"]["status"] not in ("no-golden", "ok"):
+        fail(f"quality drift: {out['quality_drift']}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched by run_medium_pipeline")
+    if tsne_launches["pairwise_dists"] <= 0:
+        fail("t-SNE did not take its distances from kernel 2")
+    return {"seconds": sec, "launches": launches, "peak_bytes": peak,
+            "figures": kind, "tsne_seconds": tsne_s}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -534,9 +723,14 @@ def main() -> None:
     kernels = [phase_logmel(dev), phase_distance(dev, lyrics_rows)]
     launches, tensors, source = phase_main_path(dev)
     sweep = phase_medium_sweep(dev, tensors, source, lyrics_rows)
+    del tensors, source
+    torch.cuda.empty_cache()
+    phase_viz_on_card(dev)
+    pipeline = phase_medium_pipeline(dev, lyrics_rows)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sweep_launches"] = sweep["launches"][k["name"]]
+        k["pipeline_launches"] = pipeline["launches"][k["name"]]
     log(f"done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -24,7 +24,8 @@ from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig
 from vae_hmc_tpu_torch.models.api import (build_conv_mm_vae,
                                           train_conv_mm_vae)
 from vae_hmc_tpu_torch.models.conv_mm_vae import ConvMMVAE
-from vae_hmc_tpu_torch.models.convert import conv_mm_vae_state_dict
+from vae_hmc_tpu_torch.models.convert import (conv_mm_vae_flax_params,
+                                              conv_mm_vae_state_dict)
 from vae_hmc_tpu_torch.models.losses import elbo_loss
 
 torch.manual_seed(0)
@@ -170,6 +171,28 @@ def test_three_step_adam_trajectory_matches_optax():
         diff = np.abs(t.numpy() - mapped[name].numpy())
         assert diff.max() <= lr, (name, diff.max())
         assert np.mean(diff <= 2e-5) >= 0.99, (name, np.mean(diff <= 2e-5))
+
+
+@pytest.mark.parametrize("shape", [(H, W), (128, 646)])
+def test_flax_params_round_trip_bit_exact(shape):
+    """Flax -> torch -> Flax (the checkpoint writer's direction) gives back
+    every array bit for bit, in the Flax layout, also at full width."""
+    h, w = shape
+    model = FlaxConvMMVAE(n_mels=h, n_frames=w, latent_dim=LAT,
+                          lyrics_dim=LYR)
+    params = jax.jit(lambda k: model.init(
+        k, jnp.zeros((1, h, w, 1)), jnp.zeros((1, LYR)), jnp.zeros((1, 1)),
+        k))(jax.random.PRNGKey(5))
+    ref = _np_params(params)
+    back = conv_mm_vae_flax_params(
+        conv_mm_vae_state_dict(ref, model.enc_hw), model.enc_hw)
+    assert set(back) == set(ref)
+    for layer, leaves in ref.items():
+        assert set(back[layer]) == set(leaves)
+        for k, a in leaves.items():
+            assert back[layer][k].dtype == a.dtype == np.float32
+            np.testing.assert_array_equal(back[layer][k], a,
+                                          err_msg=f"{layer}/{k}")
 
 
 def test_config_copy_and_seeded_init():

@@ -208,3 +208,122 @@ def test_sweep_on_gpu_matches_cpu(gpu):
                 assert a == pytest.approx(c[key], abs=1e-4), (key, r, c)
             else:
                 assert a == c[key], (key, r, c)
+
+
+def _low_rank(rng, n, d):
+    u = np.linalg.qr(rng.normal(0, 1, (n, 4)))[0]
+    v = np.linalg.qr(rng.normal(0, 1, (d, 4)))[0]
+    s = np.sqrt(n) * np.array([0.5, 0.4, 0.3, 0.2])
+    return ((u * s) @ v.T + 0.005 * rng.normal(0, 1, (n, d))
+            + rng.normal(0, 1, d)).astype(np.float32)
+
+
+def test_pca_and_tsne_on_gpu_match_cpu(gpu):
+    """PCA (Gram and scatter sides) and t-SNE's P and optimizer on the card
+    against the CPU; the card's squared distances come from kernel 2."""
+    from vae_hmc_tpu_torch.ops.pca import PCA
+    from vae_hmc_tpu_torch.viz import tsne
+    rng = np.random.default_rng(12)
+    for shape in ((40, 300), (300, 24)):
+        x = _low_rank(rng, *shape)
+        got, want = PCA(3, device=gpu).fit(x), PCA(3, device="cpu").fit(x)
+        assert got.components_.device.type == "cuda"
+        torch.testing.assert_close(got.components_.cpu(), want.components_,
+                                   rtol=0, atol=1e-4)
+        torch.testing.assert_close(got.transform(x).cpu(), want.transform(x),
+                                   rtol=0, atol=1e-4)
+    x = torch.from_numpy(rng.normal(0, 1, (200, 10)).astype(np.float32))
+    before = build.launch_counts()["pairwise_dists"]
+    p_gpu = tsne._binary_search_perplexity(tsne.input_sq_dists(x.to(gpu)),
+                                           30.0)
+    assert build.launch_counts()["pairwise_dists"] == before + 1
+    p_cpu = tsne._binary_search_perplexity(tsne.input_sq_dists(x), 30.0)
+    torch.testing.assert_close(p_gpu.cpu(), p_cpu, rtol=0, atol=1e-5)
+    y0 = 1e-2 * torch.from_numpy(rng.normal(0, 1, (200, 2)).astype(
+        np.float32))
+    got = tsne._tsne_optimize(p_cpu.to(gpu), y0.to(gpu), 200.0, n_iter=3)
+    want = tsne._tsne_optimize(p_cpu, y0, 200.0, n_iter=3)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+def test_umap_on_gpu(gpu):
+    """The graph stages equal the CPU's (kNN indices exactly); the spectral
+    init from one edge list and one start block agrees up to the order of
+    index_add_'s atomics (on a 4 x 1 rectangle, whose first two Laplacian
+    eigenvectors are well separated; on separated blobs they are nearly
+    degenerate and any rotation of them is right); and the embedding
+    separates three blobs.  The init reads the CPU's edge list on both
+    devices and is held at 1e-3 of its +-10 box: the card's atomics
+    reorder each matvec's sums, and 150 fp32 iterations on a slowly
+    converging operator carry last-bit changes of it well above 1e-6 of
+    the box."""
+    from vae_hmc_tpu_torch.cluster.kmeans import kmeans_fit_predict
+    from vae_hmc_tpu_torch.metrics.external import adjusted_rand_index
+    from vae_hmc_tpu_torch.viz import umap
+    rng = np.random.default_rng(5)
+    rect = torch.from_numpy(np.concatenate(
+        [rng.uniform(0, 1, (120, 2)) * [4.0, 1.0],
+         0.05 * rng.normal(0, 1, (120, 2))], axis=1).astype(np.float32))
+    q0 = torch.from_numpy(rng.normal(0, 1, (120, 10)).astype(np.float32))
+    stages = {}
+    for dev in ("cpu", gpu):
+        knn_d, knn_i = umap._knn(rect.to(dev), 10)
+        rho, sigma = umap._smooth_knn(knn_d)
+        h, t, w = umap._edge_weights(knn_d, knn_i, rho, sigma)
+        stages[str(dev)] = [v.cpu() for v in (knn_d, knn_i, rho, sigma, h,
+                                               t, w)]
+    for got, want in zip(stages["cuda"], stages["cpu"]):
+        if want.dtype == torch.int64:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    h, t, w = stages["cpu"][4:]
+    want = umap._spectral_init_sparse(h, t, w, 120, q0=q0)
+    got = umap._spectral_init_sparse(h.to(gpu), t.to(gpu), w.to(gpu), 120,
+                                     q0=q0.to(gpu)).cpu()
+    # eigenvector signs are the solver's own (cuSOLVER vs LAPACK)
+    got = got * torch.sign(torch.sum(got * want, dim=0))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-2)
+    rng = np.random.default_rng(0)
+    centers = rng.normal(0, 8, (3, 10))
+    y = np.repeat(np.arange(3), 60)
+    x = torch.from_numpy((centers[y] + rng.normal(0, 0.8, (180, 10)))
+                         .astype(np.float32))
+    emb = umap.umap_2d(x.to(gpu), n_neighbors=12, n_epochs=200, seed=0)
+    assert emb.shape == (180, 2) and np.isfinite(emb).all()
+    yhat = kmeans_fit_predict(emb, 3, n_init=5, seed=0, device=gpu)
+    assert adjusted_rand_index(y, yhat) > 0.95
+
+
+def test_medium_pipeline_small_on_gpu(gpu, tmp_path):
+    """run_medium_pipeline at the CPU test's size on the card: the tier's
+    files (figures as .png or .npz), 21 and 24 rows, both kernels."""
+    from vae_hmc_tpu_torch.core.config import (ConvMMVaeConfig, SweepConfig,
+                                               TextEmbedConfig, Workspace)
+    from vae_hmc_tpu_torch.pipelines import medium
+    from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
+    ws = Workspace(tmp_path)
+    before = build.launch_counts()
+    out = medium.run_medium_pipeline(
+        SyntheticSource.make(n_tracks=36, seed=1, lyrics_coverage=0.8), ws,
+        MelConfig(duration_s=1.5, n_mels=32), TextEmbedConfig(),
+        ConvMMVaeConfig(epochs=2, batch_size=12, latent_dim=8,
+                        audio_fc_dim=32),
+        SweepConfig(ks=(4, 6), dbscan_eps=(0.5, 1.0),
+                    dbscan_min_samples=(3, 5)),
+        device_batch=12, device=gpu)
+    after = build.launch_counts()
+    assert after["mel_db_standardize"] - before["mel_db_standardize"] == 3
+    assert after["pairwise_dists"] > before["pairwise_dists"]
+    assert len(out["suite"]) == 21 and len(out["sweep"]) == 24
+    ext = "." + out["figures"]
+    for rel in ("data/audio_cnn_mel_X.npy",
+                "results/vae_conv_mm_medium/ckpt_epoch_002.pt",
+                "results/report_medium/best_filtered.csv",
+                "results/cluster_viz/side_by_side_medium" + ext,
+                "results/cluster_viz/lyrics_dbscan_eps_sweep_noise_medium"
+                + ext, "results/timing_medium.json"):
+        assert (tmp_path / rel).exists(), rel
+    assert out["quality_drift"]["key"] == "medium:gpu:36"
+    for xy in out["viz15"]["embeddings"]["umap"]:
+        assert xy.shape[1] == 2 and np.isfinite(xy).all()

@@ -175,10 +175,13 @@ def test_csv_files_match_jax(csv_runs, name):
 
 
 def test_pca_dim_is_not_ported_yet():
-    x = np.zeros((4, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="ops/pca"):
-        medium._build_rep("r", x, np.arange(4), None, False, pca_dim=2,
-                          device="cpu")
+    """ops/pca is ported now: pca_dim reduces the representation (held to
+    the JAX package in tests/test_torch_pca.py), and the name stays."""
+    x = np.random.default_rng(0).normal(0, 1, (4, 3)).astype(np.float32)
+    rep = medium._build_rep("r", x, np.arange(4), None, False, pca_dim=2,
+                            device="cpu")
+    assert tuple(rep.x_dev.shape) == (4, 2)
+    assert tuple(rep.dists_dev.shape) == (4, 4)
 
 
 def test_build_rep_standardizes_as_jax():

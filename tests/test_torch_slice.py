@@ -175,13 +175,25 @@ def test_default_device_raises_without_gpu():
     from vae_hmc_tpu_torch.core.device import resolve_device
     from vae_hmc_tpu_torch.metrics.internal import silhouette
     from vae_hmc_tpu_torch.models.api import train_conv_mm_vae
+    from vae_hmc_tpu_torch.core.config import Workspace
+    from vae_hmc_tpu_torch.ops.pca import PCA
+    from vae_hmc_tpu_torch.pipelines.medium import run_medium_pipeline
+    from vae_hmc_tpu_torch.viz.projections import reduce_2d
+    from vae_hmc_tpu_torch.viz.tsne import tsne
+    from vae_hmc_tpu_torch.viz.umap import umap_2d
     x = np.zeros((4, 2), np.float32)
     calls = [lambda: resolve_device(),
              lambda: run_core(n_tracks=4, epochs=1),
              lambda: build_logmel(SyntheticSource.make(2), MelConfig()),
              lambda: kmeans(x),
              lambda: silhouette(x, [0, 0, 1, 1]),
-             lambda: train_conv_mm_vae(x, x, x[:, 0], None)]
+             lambda: train_conv_mm_vae(x, x, x[:, 0], None),
+             lambda: PCA(1).fit(x),
+             lambda: tsne(x),
+             lambda: umap_2d(x),
+             lambda: reduce_2d(x, "pca"),
+             lambda: run_medium_pipeline(SyntheticSource.make(2),
+                                         Workspace("unused"))]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -197,6 +209,10 @@ def test_port_imports_no_jax():
     assert "vae_hmc_tpu_torch.pipelines.bench_chain" in modules
     assert "vae_hmc_tpu_torch.text.minilm" in modules
     assert "vae_hmc_tpu_torch.cluster.sweep" in modules
+    for name in ("ops.pca", "ops.subspace", "viz.tsne", "viz.umap",
+                 "viz.projections", "viz.plots", "core.goldens",
+                 "core.profiling", "pipelines.medium"):
+        assert f"vae_hmc_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

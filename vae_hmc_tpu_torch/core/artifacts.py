@@ -7,14 +7,18 @@ with *_track_ids.npy, metric .csv/.json files (SURVEY.md §1).  Here:
   - the `--tag` snapshot system (reference scripts/19:35-47, 20:20-26,
     21:26-32, 22:36-42: canonical file always overwritten, tagged copy
     preserved);
-  - paired array+ids load with shape validation (07:40-55 semantics).
-The checkpoint writer comes with the port of ``train_conv_mm``.
+  - paired array+ids load with shape validation (07:40-55 semantics);
+  - checkpoint save/load in the JAX package's format: one .npz whose keys
+    are the parameter tree's paths joined by "/" (the Flax tree's, e.g.
+    ``params/enc_conv1/kernel``, in Flax layouts; see
+    ``models.convert.conv_mm_vae_flax_params``) and a ``.meta.json``
+    sidecar, so either package loads the other's checkpoints.
 """
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Iterable, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -103,3 +107,61 @@ def load_features(x_path: Path, ids_path: Path) -> Tuple[np.ndarray, np.ndarray]
         raise ValueError(
             f"row mismatch {x_path.name}={x.shape[0]} vs {ids_path.name}={ids.shape[0]}")
     return x, ids
+
+
+def _flatten(tree: Dict, prefix: str = "") -> Dict[str, Any]:
+    """Nested dict -> {"a/b/c": leaf}."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            flat.update(_flatten(v, key + "/"))
+        else:
+            flat[key] = v
+    return flat
+
+
+def save_checkpoint(path: Path, params: Dict, metadata: Optional[Dict] = None,
+                    tag: Optional[str] = None) -> Path:
+    """A nested dict of arrays as one .npz (keys: the "/"-joined paths) and
+    a metadata json sidecar, ``<path>.meta.json``.  The file keeps the
+    contract's name (e.g. ``ckpt_epoch_025.pt``): no ".npz" is appended."""
+    flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
+
+    def _w(p: Path):
+        with open(p, "wb") as f:
+            np.savez(f, **flat)
+        meta_p = p.with_suffix(p.suffix + ".meta.json")
+        meta_p.write_text(json.dumps(metadata or {}, indent=2,
+                                     default=_json_default))
+    return save_and_snapshot(_w, Path(path), tag)
+
+
+def load_checkpoint(path: Path, like: Optional[Dict] = None):
+    """Load a checkpoint saved by ``save_checkpoint`` (or by the JAX
+    package's).  -> (flat {path: array}, metadata), or with `like` (a
+    nested dict of the same structure) (nested dict of arrays, metadata);
+    a missing key or a shape that differs from `like`'s raises."""
+    path = Path(path)
+    with np.load(path, allow_pickle=False) as npz:
+        data = dict(npz)
+    meta_p = path.with_suffix(path.suffix + ".meta.json")
+    metadata = json.loads(meta_p.read_text()) if meta_p.exists() else {}
+    if like is None:
+        return data, metadata
+
+    def rebuild(tree: Dict, prefix: str) -> Dict:
+        out = {}
+        for k, v in tree.items():
+            key = f"{prefix}{k}"
+            if isinstance(v, dict):
+                out[k] = rebuild(v, key + "/")
+                continue
+            if key not in data:
+                raise KeyError(f"checkpoint missing param {key}")
+            if tuple(data[key].shape) != tuple(np.shape(v)):
+                raise ValueError(f"shape mismatch for {key}: "
+                                 f"{data[key].shape} vs {np.shape(v)}")
+            out[k] = data[key]
+        return out
+    return rebuild(like, ""), metadata

@@ -1,16 +1,27 @@
 """Configuration dataclasses, copied from the JAX package.
 
 Copies of ``vae_hmc_tpu.core.config`` ``Workspace``, ``MelConfig``,
-``ConvMMVaeConfig``, ``KMeansConfig``, ``SweepConfig`` and
-``TextEmbedConfig`` with their reference citations, so the port never
-imports the JAX package.  Field values are identical; the tests compare
-them.
+``ConvMMVaeConfig``, ``KMeansConfig``, ``SweepConfig``,
+``TextEmbedConfig``, ``TsneConfig``, ``UmapConfig`` (with the
+``UMAP_EASY``/``UMAP_HARD`` presets) and ``asdict`` with their reference
+citations, so the port never imports the JAX package.  Field values are
+identical; the tests compare them.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
+
+
+def asdict(cfg) -> dict:
+    """dataclasses.asdict with Path fields as strings (JSON metadata)."""
+    d = dataclasses.asdict(cfg)
+    for k, v in d.items():
+        if isinstance(v, Path):
+            d[k] = str(v)
+    return d
 
 
 @dataclass(frozen=True)
@@ -121,3 +132,24 @@ class TextEmbedConfig:
     min_chars: int = 30             # 11:43 skip <30 chars
     tfidf_max_features: int = 2000  # 18:221 fallback TfidfVectorizer(max_features=2000)
     batch_size: int = 64
+
+
+@dataclass(frozen=True)
+class TsneConfig:
+    perplexity: float = 30.0       # 08:118
+    learning_rate: float = 200.0   # 08:119
+    n_iter: int = 1500             # 08:120
+    init: str = "pca"              # 08:120
+    early_exaggeration: float = 12.0  # sklearn default
+    seed: int = 42
+
+
+@dataclass(frozen=True)
+class UmapConfig:
+    n_neighbors: int = 30          # easy 08:98; hard uses 20 (21:36)
+    min_dist: float = 0.1          # easy 08:99; hard 0.15 (21:37)
+    seed: int = 42
+
+
+UMAP_EASY = UmapConfig()
+UMAP_HARD = UmapConfig(n_neighbors=20, min_dist=0.15)

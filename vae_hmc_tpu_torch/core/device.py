@@ -36,6 +36,14 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def as_rows(x, device="cuda") -> torch.Tensor:
+    """(N, ...) numpy or tensor -> (N, d) float32 tensor.  A tensor stays on
+    its own device; numpy goes to `device` (resolved by the rule above)."""
+    dev = x.device if isinstance(x, torch.Tensor) else resolve_device(device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    return x.reshape(x.shape[0], -1)
+
+
 def synchronize(device: torch.device) -> None:
     """Stage-boundary sync: waits for queued CUDA work; no-op on the CPU."""
     if device.type == "cuda":

@@ -1,5 +1,6 @@
 """Carry Flax weights across into the port's modules: ``ConvMMVAE`` and
-``MiniLM``.
+``MiniLM``; and ``ConvMMVAE``'s weights back into the Flax tree, for
+checkpoints in the JAX package's format.
 
 The inverse of ``vae_hmc_tpu.models.torch_port`` (linear, conv2d,
 conv_transpose2d and the NCHW-flatten seams), written here so the port
@@ -60,6 +61,49 @@ def conv_mm_vae_state_dict(params: Params, enc_hw: Tuple[int, int],
     b = params["dec_fc2"]["bias"]
     sd["dec_fc2.bias"] = _t(b.reshape(eh, ew, c).transpose(2, 0, 1).reshape(-1))
     return sd
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def conv_mm_vae_flax_params(state_dict: Dict[str, torch.Tensor],
+                            enc_hw: Tuple[int, int],
+                            channels: Tuple[int, ...] = (32, 64, 128)
+                            ) -> Params:
+    """``ConvMMVAE`` state_dict -> Flax ``params`` (numpy, the tree under
+    ``"params"``): ``conv_mm_vae_state_dict`` run backwards, every
+    transpose, flip and NCHW -> NHWC reorder undone, so the checkpoint
+    writer stores the JAX package's layouts."""
+    eh, ew = enc_hw
+    c = channels[-1]
+    contig = np.ascontiguousarray
+    params: Params = {}
+    for i in range(len(channels)):
+        w = _np(state_dict[f"enc_convs.{i}.weight"])     # (out, in, kh, kw)
+        params[f"enc_conv{i + 1}"] = {
+            "kernel": contig(w.transpose(2, 3, 1, 0)),
+            "bias": _np(state_dict[f"enc_convs.{i}.bias"])}
+        w = _np(state_dict[f"dec_convs.{i}.weight"])     # (in, out, kh, kw)
+        params[f"dec_conv{i + 1}"] = {
+            "kernel": contig(w.transpose(2, 3, 0, 1)[::-1, ::-1]),
+            "bias": _np(state_dict[f"dec_convs.{i}.bias"])}
+    for name in ("mu_a", "logvar_a", "lyr1", "lyr2", "fuse", "mu", "logvar",
+                 "dec_fc1"):
+        params[name] = {"kernel": contig(_np(state_dict[f"{name}.weight"]).T),
+                        "bias": _np(state_dict[f"{name}.bias"])}
+    w = _np(state_dict["enc_fc.weight"])                 # (out, C*H*W)
+    params["enc_fc"] = {
+        "kernel": contig(w.reshape(-1, c, eh, ew).transpose(2, 3, 1, 0)
+                         .reshape(eh * ew * c, -1)),
+        "bias": _np(state_dict["enc_fc.bias"])}
+    w = _np(state_dict["dec_fc2.weight"])                # (C*H*W, in)
+    b = _np(state_dict["dec_fc2.bias"])
+    params["dec_fc2"] = {
+        "kernel": contig(w.reshape(c, eh, ew, -1).transpose(3, 1, 2, 0)
+                         .reshape(w.shape[1], -1)),
+        "bias": contig(b.reshape(c, eh, ew).transpose(1, 2, 0).reshape(-1))}
+    return params
 
 
 def minilm_state_dict(variables) -> Dict[str, torch.Tensor]:

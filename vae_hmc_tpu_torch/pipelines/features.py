@@ -11,11 +11,13 @@ dropped and reported in the ``BuildReport`` rows contract
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
+from vae_hmc_tpu_torch.core.artifacts import save_csv_rows
 from vae_hmc_tpu_torch.core.config import MelConfig
 from vae_hmc_tpu_torch.core.device import resolve_device
 from vae_hmc_tpu_torch.ops.kernels.logmel import logmel_standardized
@@ -27,6 +29,10 @@ class BuildReport:
 
     def ok_count(self) -> int:
         return sum(1 for r in self.rows if r[2] == "ok")
+
+    def save(self, path: Path) -> Path:
+        return save_csv_rows(path, ["track_id", "audio_path", "status", "reason"],
+                             self.rows)
 
 
 def build_logmel(source, cfg: MelConfig, device_batch: int = 128,

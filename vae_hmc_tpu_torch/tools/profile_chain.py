@@ -12,22 +12,27 @@ time (the kernels launched inside its ``stage:*`` range); the device's busy
 time and idle share over the run; and device time by kernel.  Then, with
 the same breakdown, the medium tier's scripts 11, 13 and 16 on that run's
 tensors (``pipelines.medium.scripts_11_13_16``, as ``chip_smoke.py``
-phase 4).  Needs a GPU.
+phase 4); and the whole medium tier, ``run_medium_pipeline`` at the same
+size (as ``chip_smoke.py`` phase 5), by the stages of its
+``timing_medium.json``, with its peak device memory.  Needs a GPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import tempfile
 
+import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
-from vae_hmc_tpu_torch.core.config import Workspace
+from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig, Workspace
 from vae_hmc_tpu_torch.core.device import resolve_device
 from vae_hmc_tpu_torch.ops.kernels import build
 from vae_hmc_tpu_torch.pipelines import medium
 from vae_hmc_tpu_torch.pipelines.bench_chain import run_core
+from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
 
 N_TRACKS = 2924
 EPOCHS = 1
@@ -70,6 +75,19 @@ def main() -> None:
                                       device=dev)
     _report(prof, out["seconds"], build.launch_counts(),
             out["seconds"]["seconds_total"], TOP)
+    del cold, res, t, out             # the pipeline's peak memory is its own
+    with tempfile.TemporaryDirectory() as root, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        pipe = medium.run_medium_pipeline(
+            SyntheticSource.make(N_TRACKS, seed=42), Workspace(root),
+            vae_cfg=dataclasses.replace(ConvMMVaeConfig(), epochs=EPOCHS),
+            device_batch=128, device=dev)
+    print(f"run_medium_pipeline: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    _report(prof, pipe["timing"]["seconds"], build.launch_counts(),
+            pipe["timing"]["total_seconds"], TOP)
 
 
 def _report(prof, seconds, launches, wall_s: float, top: int) -> None:
