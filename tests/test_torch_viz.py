@@ -10,10 +10,11 @@ the JAX package (numpy inputs from a seed, CPU).
     and distances; rho, sigma, the edge-wise fuzzy union and its dense
     small-graph counterpart, epochs per sample (atol 1e-5); the spectral
     init from the JAX package's start block, per column up to sign (atol
-    1e-3 on the +-10 box); end to end, trustworthiness above 0.9 and ARI
-    above 0.95 on blobs (the random streams differ, ROADMAP parity rule
-    2, so the embedding is held to quality, as tests/test_umap.py holds
-    the JAX one);
+    1e-3 on the +-10 box), and how far one-ulp moves of the edge weights
+    move that init (1e-3 to 1e-2); end to end, trustworthiness above 0.9
+    and ARI above 0.95 on blobs (the random streams differ, ROADMAP parity
+    rule 2, so the embedding is held to quality, as tests/test_umap.py
+    holds the JAX one);
   - reduce_2d's dispatch and pre_pca_dim step;
   - every figure writer draws a PNG, and writes its data as .npz when
     matplotlib cannot be imported.
@@ -207,11 +208,25 @@ def test_spectral_init_matches_jax_from_its_start_block():
         torch.from_numpy(np.array(jt, dtype=np.int64)),
         torch.from_numpy(np.array(jw)), n, q0=torch.from_numpy(q0)).numpy()
     np.testing.assert_allclose(_sign_cols(ours, ref), ref, atol=1e-3)
-    # the dense small-graph init (exact eigh up to 512 nodes)
+    # the dense small-graph init (exact eigh at every size)
     W = np.array(jumap._build_w(knn_d, knn_i, rho, sigma))
     dense = umap_mod._spectral_init(torch.from_numpy(W)).numpy()
     jdense = np.asarray(jumap._spectral_init(jnp.asarray(W)))
     np.testing.assert_allclose(_sign_cols(dense, jdense), jdense, atol=1e-3)
+
+
+def test_spectral_init_moves_by_1e3_under_one_ulp():
+    """On the same rectangle, moving the edge weights by one ulp (all up,
+    all down, random halves up) moves the sparse init by about 1e-3 of its
+    +-10 box on the CPU alone: 150 fp32 iterations on an operator whose
+    leading eigenvalues lie close together carry last-bit changes that far.
+    So the card (kernel 2's distances, index_add_'s atomics) cannot be held
+    to the CPU's init much below that (tools/umap_init_spread)."""
+    from vae_hmc_tpu_torch.tools import umap_init_spread as spread
+    x, q0 = spread.rectangle()
+    moves = spread.cpu_readings(x, q0)["ulp_moves"]
+    assert len(moves) == 10 and all(m > 0.0 for m in moves.values())
+    assert 1e-3 < max(moves.values()) < 1e-2
 
 
 def test_umap_end_to_end_quality(blobs3):
@@ -272,6 +287,17 @@ def test_reduce_2d_pre_pca_dim():
     xy, _ = projections.reduce_2d(x, "pca", pre_pca_dim=80, device="cpu")
     ref, _ = jproj.reduce_2d(x, "pca", pre_pca_dim=80)
     np.testing.assert_allclose(xy, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("installed,env,want", [
+    (False, "1", False), (True, "", False), (True, "1", True)])
+def test_use_umap_learn_needs_package_and_env(monkeypatch, installed, env,
+                                              want):
+    """The one place that decides on umap-learn (reduce_2d and script 15):
+    the variable alone, without the package, keeps the first-party UMAP."""
+    monkeypatch.setattr(projections, "_HAVE_UMAP_LEARN", installed)
+    monkeypatch.setenv("VAE_HMC_USE_UMAP_LEARN", env)
+    assert projections.use_umap_learn() is want
 
 
 # ---------------------------------------------------------------------------

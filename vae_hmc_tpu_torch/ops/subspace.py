@@ -3,11 +3,13 @@
 
 The JAX package iterates instead of calling a dense ``eigh`` because XLA's
 TPU lowering of ``eigh`` unrolls its sweeps into executables that grow
-with the operand.  Nothing here compiles per shape, so ``ops.pca`` calls
-``torch.linalg.eigh`` at every size; this module serves the UMAP spectral
-init: ``viz.umap._spectral_init_sparse``, whose operator is an edge list,
-not a matrix, iterates through ``_iterate``, and the dense small-graph
-init calls ``topk_eigh_deflated`` above 512 nodes, as the JAX package.
+with the operand.  Nothing here compiles per shape, so ``ops.pca`` and
+the dense UMAP init (``viz.umap._spectral_init``) call
+``torch.linalg.eigh`` at every size.  What iterates here is the sparse
+UMAP init (``viz.umap._spectral_init_sparse``), whose operator is an edge
+list, not a matrix: it runs ``_iterate``.  ``topk_eigh`` and
+``topk_eigh_deflated`` are the JAX package's dense-matrix entry points,
+kept with it for parity.
 
 Each step is one (n, n) x (n, m) product and a Löwdin orthonormalization
 (an (m, m) ``eigh``), then a Rayleigh-Ritz ``eigh`` of the converged block.

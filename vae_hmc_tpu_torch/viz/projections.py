@@ -30,6 +30,11 @@ except ImportError:
     _HAVE_UMAP_LEARN = False
 
 
+def use_umap_learn() -> bool:
+    """umap-learn is installed and VAE_HMC_USE_UMAP_LEARN asks for it."""
+    return _HAVE_UMAP_LEARN and bool(os.environ.get("VAE_HMC_USE_UMAP_LEARN"))
+
+
 def reduce_2d(x, method: str = "umap",
               tsne_cfg: TsneConfig = TsneConfig(),
               umap_cfg: UmapConfig = UmapConfig(),
@@ -46,7 +51,7 @@ def reduce_2d(x, method: str = "umap",
     if method == "pca":
         return PCA(2).fit_transform(x).cpu().numpy(), "pca"
     if method == "umap":
-        if _HAVE_UMAP_LEARN and os.environ.get("VAE_HMC_USE_UMAP_LEARN"):
+        if use_umap_learn():
             reducer = _umap_learn.UMAP(n_neighbors=umap_cfg.n_neighbors,
                                        min_dist=umap_cfg.min_dist,
                                        random_state=umap_cfg.seed)

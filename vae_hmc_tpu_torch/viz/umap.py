@@ -39,8 +39,7 @@ import torch
 from vae_hmc_tpu_torch.core.device import as_rows
 from vae_hmc_tpu_torch.metrics.internal import center
 from vae_hmc_tpu_torch.ops.kernels.distance import pairwise_dists
-from vae_hmc_tpu_torch.ops.subspace import (_iterate, deflation, start_block,
-                                            topk_eigh_deflated)
+from vae_hmc_tpu_torch.ops.subspace import _iterate, deflation, start_block
 
 
 def find_ab_params(spread: float = 1.0, min_dist: float = 0.1):
@@ -197,22 +196,19 @@ def _spectral_init_sparse(heads, tails, weights, n: int, n_iter: int = 150,
     return _scale_box(y0)
 
 
-def _spectral_init(W: torch.Tensor, q0=None) -> torch.Tensor:
+def _spectral_init(W: torch.Tensor) -> torch.Tensor:
     """Dense-W spectral init (the small-graph API): the two leading
-    nontrivial eigenvectors of the normalized Laplacian.  Up to 512 nodes
-    the exact eigh, as the JAX package; above, the same deflated subspace
-    iteration as ``_spectral_init_sparse`` on the dense operator."""
+    nontrivial eigenvectors of the normalized Laplacian, from the exact
+    ``torch.linalg.eigh`` at every size.  The JAX package switches to
+    deflated subspace iteration above 512 nodes only because XLA's TPU
+    lowering of ``eigh`` compiles to executables that grow with the
+    operand; nothing here compiles per shape (as ``ops.pca``)."""
     n = W.shape[0]
     d = torch.clamp(torch.sum(W, dim=1), min=1e-8)
     inv_sqrt = 1.0 / torch.sqrt(d)
     S = inv_sqrt[:, None] * W * inv_sqrt[None, :]
-    eye = torch.eye(n, device=W.device)
-    if n <= 512:
-        _, vecs = torch.linalg.eigh(eye - S)
-        y0 = vecs[:, 1:3]
-    else:
-        _, y0 = topk_eigh_deflated(S + eye, torch.sqrt(d), 2, q0=q0)
-    return _scale_box(y0)
+    _, vecs = torch.linalg.eigh(torch.eye(n, device=W.device) - S)
+    return _scale_box(vecs[:, 1:3])
 
 
 def _optimize(y0, heads, tails, eps_per_sample, gen: torch.Generator, a: float,
