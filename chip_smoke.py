@@ -32,7 +32,24 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      the tier's file contract (figures as .png, or as .npz data where
      matplotlib is missing), the CSV headers, 21 and 102 rows and every
      embedding's (N, 2) shape, and prints the stage seconds of
-     ``timing_medium.json``, the launches and the peak device memory.
+     ``timing_medium.json``, the launches and the peak device memory;
+  6. the easy tier, ``run_easy_pipeline`` (scripts 06 -> 07 -> 08 with
+     UMAP -> 09) at 2,924 tracks: 30 s clips (MFCC stats through kernel 1 at
+     (64, 1025, 1,292)), the full DenseVaeConfig (80 -> 256 -> 256 -> 16, 40
+     epochs at batch 128) and KMeansConfig(); it checks the tier's file
+     contract, that scaler.joblib unpickles, the (2924, 16) latents, the 3
+     rows of metrics.csv and both kernels' launches;
+  7. the hard tier, ``run_hard_pipeline`` (scripts 18 -> 22, tag
+     "beta_test") at 2,924 tracks: 20 s clips (kernel 1 at (64, 1025, 862)),
+     TF-IDF lyrics, the Beta-VAE (50 epochs at batch 256, "sum" reduction)
+     and the AE baseline; the file contract, the 4 baseline rows and
+     NMI/ARI/purity in range; then scripts 19 -> 20 -> 22 once more with
+     HARD_CVAE on the port's synthetic-MiniLM embeddings of the 2,924 texts:
+     the reference's fused width, 464.
+Each tier runs with the launch counters reset just before and read just
+after, and fails unless its kernels were launched.  Phase 2 also holds
+kernel 1 in the MFCC mode and kernel 2 at (2924, 16) and (2924, 80) to
+their plain versions.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the port beside it, the script exits non-zero and prints no result.
@@ -56,6 +73,7 @@ MAIN_TRACKS = 2924              # the medium tier's corpus
 MAIN_EPOCHS = 1
 MEL_FLAT = 128 * 646            # width of the mel-flat representation
 DEVICE_BATCH = 128               # log-mel batch of the main path
+MFCC_BATCH = 64                  # MFCC batch of the easy and hard tiers
 
 
 def log(msg: str) -> None:
@@ -70,7 +88,6 @@ def fail(msg: str) -> None:
 def check_close(what: str, got, want, atol: float, rtol: float = 0.0) -> float:
     """Fail unless |got - want| <= atol + rtol |want| everywhere (and got is
     finite where want is); -> max abs error."""
-    import torch
     if tuple(got.shape) != tuple(want.shape):
         fail(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     err = (got - want).abs()
@@ -182,7 +199,7 @@ def _spectrogram(n_tracks: int, cfg, dev):
     src = SyntheticSource.make(n_tracks, seed=7)
     y, _, _ = src.waveforms(list(range(n_tracks)), cfg.duration_s, dev)
     return power_spectrogram(y, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
-                             power=cfg.power)
+                             power=getattr(cfg, "power", 2.0))
 
 
 def script11_rows() -> int:
@@ -295,6 +312,71 @@ def phase_logmel(dev) -> dict:
             "shape": [b, f, t, m]}
 
 
+def phase_logmel_mfcc(dev) -> dict:
+    """Kernel 1 in the MFCC mode (ref 1.0, 80 dB floor, no standardize) at
+    the easy and hard tiers' batches: (64, 1025, T) and the last batch of
+    2,924 tracks, (44, 1025, T), for T = 1,292 (30 s) and 862 (20 s)."""
+    import torch
+    from vae_hmc_tpu_torch.core.config import MFCC_EASY, MFCC_HARD
+    from vae_hmc_tpu_torch.ops import mel as mel_ops
+    from vae_hmc_tpu_torch.ops.kernels import build
+    from vae_hmc_tpu_torch.ops.kernels.logmel import (
+        cluster_occupancy, mel_db_standardize, mel_db_standardize_plain)
+
+    log("kernel 1 in the MFCC mode (ref_max=False, top_db=80, no "
+        "standardize) at the easy and hard tiers' shapes")
+    kw = dict(ref_max=False, top_db=80.0, standardize=False)
+    max_err, rows = 0.0, []
+    for tier, cfg in (("easy", MFCC_EASY), ("hard", MFCC_HARD)):
+        fb = mel_ops.mel_filterbank_tensor(cfg, dev)
+        bands = mel_ops.filterbank_bands_tensor(cfg, dev)
+        weights = mel_ops.filterbank_weights_tensor(cfg, dev)
+
+        def kernel(spec):
+            return mel_db_standardize(spec, fb, bands=bands, weights=weights,
+                                      **kw)
+
+        for b in (MAIN_TRACKS % MFCC_BATCH, MFCC_BATCH):
+            spec = _spectrogram(b, cfg, dev)
+            build.reset_launch_counts()
+            got = kernel(spec)
+            per_call = build.launch_counts()["mel_db_standardize"]
+            if per_call != 1:
+                fail(f"kernel 1 counted {per_call} launches for one call")
+            max_err = max(max_err, check_close(
+                f"{tier} MFCC mode {tuple(spec.shape)}", got,
+                mel_db_standardize_plain(spec, fb, **kw), 1e-3))
+        # a non-finite sample stays non-finite in this mode too
+        spec[1, 100, 5] = float("nan")
+        got = kernel(spec)
+        finite = torch.isfinite(got).all(dim=2).all(dim=1)
+        if bool(finite[1]) or not bool(finite[[0, 2]].all()):
+            fail(f"{tier} MFCC mode: NaN in sample 1 gives finite flags "
+                 f"{finite[:3].tolist()}")
+        spec = _spectrogram(MFCC_BATCH, cfg, dev)
+        b, f, t = spec.shape
+        m, nnz = fb.shape[0], weights.numel()
+        clusters = cluster_occupancy(m, f, t, nnz)
+        ms = time_ms(lambda: kernel(spec))
+        plain_ms = time_ms(lambda: mel_db_standardize_plain(spec, fb, **kw))
+        library_ms = time_ms(lambda: mel_ops.power_to_db(
+            torch.matmul(fb, spec), ref_max=False, top_db=80.0))
+        bound_ms, bound_by = bound(4.0 * (b * f * t + 2 * m + nnz + b * m * t),
+                                   2.0 * nnz * b * t)
+        log(f"  {tier}: NaN sample stays non-finite; cluster occupancy "
+            f"granted at T = {t}: {clusters} clusters of 8 at once; timing at "
+            f"({b}, {f}, {t}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({bound_ms / ms:.1%} of the bound)")
+        rows.append({"tier": tier, "shape": [b, f, t, m], "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "cluster_occupancy": clusters})
+        del spec
+    torch.cuda.empty_cache()
+    return {"mfcc_max_abs_err": max_err, "mfcc_rows": rows}
+
+
 def phase_distance(dev, lyrics_rows: int) -> dict:
     import torch
     from vae_hmc_tpu_torch.ops.kernels import build
@@ -323,7 +405,9 @@ def phase_distance(dev, lyrics_rows: int) -> dict:
              ((8, 384), None),
              ((MAIN_TRACKS, MEL_FLAT), None), ((MAIN_TRACKS, MEL_FLAT), 8),
              ((8, MEL_FLAT), None),
-             ((256, MEL_FLAT), None), ((37, 17), None)]
+             ((256, MEL_FLAT), None), ((37, 17), None),
+             # phases 6-7: latents and PCA(16), MFCC stats (80)
+             ((MAIN_TRACKS, 16), None), ((MAIN_TRACKS, 80), None)]
     for (n, d), m in cases:
         x = centred(n, d)
         y = None if m is None else centred(m, d)
@@ -365,6 +449,20 @@ def phase_distance(dev, lyrics_rows: int) -> dict:
     log(f"  timing at ({n}, {d}) self: kernel {ms:.5f} ms, plain "
         f"{plain_ms:.5f} ms, torch.cdist {library_ms:.5f} ms, bound "
         f"{bound_ms:.5f} ms by {bound_by}")
+    tier_rows = []
+    for dt in (16, 80):                         # phases 6-7's silhouettes
+        xt = centred(MAIN_TRACKS, dt)
+        t_ms = time_ms(lambda: pairwise_dists(xt), reps=200)
+        t_plain = time_ms(lambda: pairwise_dists_plain(xt), reps=200)
+        t_lib = time_ms(lambda: torch.cdist(xt, xt), reps=200)
+        t_bound, t_by = dist_bound(MAIN_TRACKS, MAIN_TRACKS, dt,
+                                   self_dist=True)
+        log(f"  timing at ({MAIN_TRACKS}, {dt}) self: kernel {t_ms:.5f} ms, "
+            f"plain {t_plain:.5f} ms, torch.cdist {t_lib:.5f} ms, bound "
+            f"{t_bound:.5f} ms by {t_by}")
+        tier_rows.append({"shape": [MAIN_TRACKS, MAIN_TRACKS, dt], "ms": t_ms,
+                          "plain_ms": t_plain, "library_ms": t_lib,
+                          "bound_ms": t_bound, "bound_by": t_by})
     xf = centred(256, 82688)
     flat_ms = time_ms(lambda: pairwise_dists(xf), reps=10)
     flat_plain = time_ms(lambda: pairwise_dists_plain(xf), reps=10)
@@ -399,7 +497,8 @@ def phase_distance(dev, lyrics_rows: int) -> dict:
             "sweep_cache_ms": cache_ms, "sweep_cache_plain_ms": cache_plain,
             "sweep_cache_library_ms": cache_library,
             "sweep_cache_bound_ms": cache_bound,
-            "sweep_cache_shape": [MAIN_TRACKS, MAIN_TRACKS, MEL_FLAT]}
+            "sweep_cache_shape": [MAIN_TRACKS, MAIN_TRACKS, MEL_FLAT],
+            "tier_rows": tier_rows}
 
 
 def phase_main_path(dev):
@@ -599,11 +698,9 @@ def phase_medium_pipeline(dev, lyrics_rows: int) -> dict:
     import dataclasses
     import tempfile
     import numpy as np
-    import torch
     from vae_hmc_tpu_torch.core.config import (ConvMMVaeConfig, MelConfig,
                                                SweepConfig, TextEmbedConfig,
                                                Workspace)
-    from vae_hmc_tpu_torch.ops.kernels import build
     from vae_hmc_tpu_torch.pipelines import medium
     from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
 
@@ -613,44 +710,28 @@ def phase_medium_pipeline(dev, lyrics_rows: int) -> dict:
     vae_cfg = dataclasses.replace(ConvMMVaeConfig(), epochs=MAIN_EPOCHS)
     with tempfile.TemporaryDirectory() as root:
         ws = Workspace(root)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        build.reset_launch_counts()
-        t0 = time.perf_counter()
-        out = medium.run_medium_pipeline(
-            source, ws, MelConfig(), TextEmbedConfig(), vae_cfg, SweepConfig(),
-            with_viz=True, device_batch=DEVICE_BATCH, write_mel_features=True,
-            device=dev)
-        wall = time.perf_counter() - t0
-        launches = build.launch_counts()
-        peak = torch.cuda.max_memory_allocated(dev)
+        out, launches, wall, peak = _run_tier(
+            dev, "run_medium_pipeline", lambda: medium.run_medium_pipeline(
+                source, ws, MelConfig(), TextEmbedConfig(), vae_cfg,
+                SweepConfig(), with_viz=True, device_batch=DEVICE_BATCH,
+                write_mel_features=True, device=dev))
         timing = json.loads((ws.results / "timing_medium.json").read_text())
 
         log("script 14 with t-SNE on the latents (1,500 iterations)")
         genre_map = {int(t): str(g) for t, g in zip(source.track_ids,
                                                     source.genres)}
-        build.reset_launch_counts()
-        t1 = time.perf_counter()
-        viz_tsne = medium.visualize_clustering(
-            ws, ws.data / "vae_mm_latents_mu.npy",
-            ws.data / "vae_mm_latents_track_ids.npy", genre_map,
-            method="kmeans", n_clusters=6, proj="tsne", tag="vae_kmeans6",
-            x_arr=out["train"]["latents"], ids_arr=out["train"]["ids"],
-            yhat_arr=out["viz14"]["labels"], device=dev)
-        torch.cuda.synchronize()
-        tsne_s = time.perf_counter() - t1
-        tsne_launches = build.launch_counts()
+        viz_tsne, tsne_launches, tsne_s, _ = _run_tier(
+            dev, "script 14 with t-SNE", lambda: medium.visualize_clustering(
+                ws, ws.data / "vae_mm_latents_mu.npy",
+                ws.data / "vae_mm_latents_track_ids.npy", genre_map,
+                method="kmeans", n_clusters=6, proj="tsne", tag="vae_kmeans6",
+                x_arr=out["train"]["latents"], ids_arr=out["train"]["ids"],
+                yhat_arr=out["viz14"]["labels"], device=dev))
 
         kind = out["figures"]
-        files = PIPELINE_FILES + [
+        _check_files(root, PIPELINE_FILES + [
             "results/cluster_viz/vae_kmeans6_vae_mm_latents_mu_kmeans_tsne_"
-            "clusters.png"]
-        for rel in files:
-            path = Path(root) / rel
-            if path.suffix == ".png" and kind == "npz":
-                path = path.with_suffix(".npz")
-            if not path.exists():
-                fail(f"run_medium_pipeline did not write {path.name}")
+            "clusters.png"], kind, "run_medium_pipeline")
         headers, lines = {}, {}
         for name in ("medium_clustering_metrics_all.csv",
                      "medium_full_sweep_metrics.csv",
@@ -670,9 +751,6 @@ def phase_medium_pipeline(dev, lyrics_rows: int) -> dict:
         "synchronize): " + ", ".join(f"{k} {v:.3f}" for k, v in sec.items()))
     log(f"  total {timing['total_seconds']:.3f} s of stages, "
         f"{wall:.3f} s wall; script 14 with t-SNE {tsne_s:.3f} s")
-    log(f"  kernels: {json.dumps(launches)}; t-SNE's script 14: "
-        f"{json.dumps(tsne_launches)}")
-    log(f"  peak device memory {peak / 2**30:.3f} GiB")
     log(f"  figures written as {kind} (matplotlib "
         f"{'present' if kind == 'png' else 'not installed'})")
     log(f"  rows: script 13 {len(out['suite'])}, script 16 "
@@ -709,6 +787,263 @@ def phase_medium_pipeline(dev, lyrics_rows: int) -> dict:
             "figures": kind, "tsne_seconds": tsne_s}
 
 
+# the easy tier's file contract (the JAX package's
+# tests/test_easy_pipeline.py list, script 08's figure, the timing file); a
+# figure is its .png or, without matplotlib, its data as .npz of the stem
+EASY_FILES = [
+    "results/vae_basic/latent_mu.npy", "results/vae_basic/track_ids.npy",
+    "results/vae_basic/history.json", "results/vae_basic/train_config.json",
+    "results/vae_basic/scaler.joblib",
+    "results/vae_basic/mfcc_features_cache.npy",
+    "results/vae_basic/vae_basic.pt",
+    "results/kmeans_vae/labels_vae_kmeans.npy",
+    "results/kmeans_vae/kmeans_vae_centers.npy",
+    "results/kmeans_vae/track_ids.npy",
+    "results/kmeans_vae/kmeans_vae_summary.json",
+    "results/compare_metrics/metrics.csv",
+    "results/compare_metrics/metrics_report.json",
+    "results/compare_metrics/labels_pca_mfcc.npy",
+    "results/compare_metrics/labels_pca_latents.npy",
+    "results/viz_vae/plots/vae_umap.png", "results/timing_easy.json",
+]
+
+
+def _check_files(root, files, kind: str, what: str) -> None:
+    for rel in files:
+        path = Path(root) / rel
+        if path.suffix == ".png" and kind == "npz":
+            path = path.with_suffix(".npz")
+        if not path.exists():
+            fail(f"{what} did not write {rel}")
+
+
+def _run_tier(dev, what: str, fn):
+    """fn() with the launch counters and the peak memory reset just before
+    and read just after (a synchronize ends it); -> (its result, launches,
+    seconds, peak bytes)."""
+    import torch
+    from vae_hmc_tpu_torch.ops.kernels import build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  {what}: {wall:.3f} s wall, kernels {json.dumps(launches)}, peak "
+        f"device memory {peak / 2**30:.3f} GiB")
+    return out, launches, wall, peak
+
+
+def _log_stages(timing: dict, name: str) -> None:
+    log(f"  stage seconds ({name}; each stage ends in a synchronize): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in timing["seconds"].items())
+        + f"; total {timing['total_seconds']:.3f}")
+
+
+def phase_easy_pipeline(dev) -> dict:
+    """run_easy_pipeline at 2,924 tracks (scripts 06 -> 07 -> 08 with UMAP
+    -> 09) with MFCC_EASY, the full DenseVaeConfig and KMeansConfig."""
+    import pickle
+    import tempfile
+    import numpy as np
+    from vae_hmc_tpu_torch.core.config import (DENSE_VAE_EASY, MFCC_EASY,
+                                               KMeansConfig, Workspace)
+    from vae_hmc_tpu_torch.pipelines import easy
+    from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
+
+    log(f"easy tier end to end: run_easy_pipeline({MAIN_TRACKS} tracks, 30 s "
+        f"clips, DenseVAE 80-256-256-16, {DENSE_VAE_EASY.epochs} epochs at "
+        f"batch {DENSE_VAE_EASY.batch_size}), with UMAP")
+    source = SyntheticSource.make(MAIN_TRACKS, seed=42)
+    with tempfile.TemporaryDirectory() as root:
+        ws = Workspace(root)
+        out, launches, wall, peak = _run_tier(
+            dev, "run_easy_pipeline", lambda: easy.run_easy_pipeline(
+                source, ws, MFCC_EASY, DENSE_VAE_EASY, KMeansConfig(),
+                with_viz=True, device_batch=MFCC_BATCH, device=dev))
+        kind = out["figures"]
+        _check_files(root, EASY_FILES, kind, "run_easy_pipeline")
+        with open(ws.results / "vae_basic/scaler.joblib", "rb") as f:
+            scaler = pickle.load(f)
+        mu = np.load(ws.results / "vae_basic/latent_mu.npy")
+        lines = (ws.results / "compare_metrics/metrics.csv").read_text() \
+            .strip().split("\n")
+        timing = json.loads((ws.results / "timing_easy.json").read_text())
+    _log_stages(timing, "timing_easy.json")
+    hist = out["train"]["history"]
+    log(f"  loss epoch 1 {hist[0]['total']:.5f} -> epoch {len(hist)} "
+        f"{hist[-1]['total']:.5f}; quality drift "
+        f"{out['quality_drift']['status']} ({out['quality_drift']['key']})")
+    for r in out["compare"]["rows"]:
+        log(f"    09 {r['method']:15s} {r['input']:22s} silhouette "
+            f"{r['silhouette']:.5f} CH {r['calinski_harabasz']:.3f} "
+            f"PCA variance {r['pca_variance']}")
+    if scaler.mean_.shape != (80,) or mu.shape != (MAIN_TRACKS, 16) or \
+            not np.isfinite(mu).all():
+        fail(f"scaler mean {scaler.mean_.shape}, latent_mu {mu.shape} or "
+             "not finite")
+    if len(lines) != 4 or not lines[0].startswith(
+            "method,input,input_dim,k,silhouette"):
+        fail(f"metrics.csv: {lines}")
+    for r in out["compare"]["rows"]:
+        if not -1.0 <= r["silhouette"] <= 1.0:
+            fail(f"script 09 row {r}: silhouette out of range")
+    if out["quality_drift"]["status"] not in ("no-golden", "ok"):
+        fail(f"quality drift: {out['quality_drift']}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched by run_easy_pipeline")
+    return {"seconds": timing["seconds"], "launches": launches,
+            "peak_bytes": peak, "wall": wall}
+
+
+# the hard tier's file contract: tests/test_hard_pipeline.py's list (tag
+# "beta_test"), plus the timing file
+HARD_FILES = [
+    "data/hard/audio_mfcc_stats.npy", "data/hard/lyrics_emb.npy",
+    "data/hard/track_ids.npy", "data/hard/genres.npy",
+    "data/hard/genre_idx.npy", "data/hard/languages.npy",
+    "data/hard/lang_idx.npy", "data/hard/hard_metadata.csv",
+    "data/hard/build_info.json", "data/hard/latents_mu.npy",
+    "data/hard/latents_mu_beta_test.npy",
+    "models/hard/beta_vae_multimodal.pt",
+    "results/hard/hard_metrics_vae_latents.json",
+    "results/hard/hard_metrics_vae_latents_beta_test.json",
+    "results/hard/cluster_composition_by_genre.csv",
+    "results/hard/cluster_labels_kmeans.npy",
+    "results/hard/cluster_distribution_genre_counts.csv",
+    "results/hard/cluster_distribution_language_counts.csv",
+    "results/hard/baseline_comparison.csv",
+    "results/hard/plots/training_curve.png",
+    "results/hard/plots/recon_examples.png",
+    "results/hard/plots/latent_2d.npy",
+    "results/hard/plots/latent_by_cluster.png",
+    "results/hard/plots/latent_by_genre.png",
+    "results/hard/plots/latent_by_language.png",
+    "results/hard/plots/cluster_dist_over_genres.png",
+    "results/hard/plots/cluster_dist_over_languages.png",
+    "results/hard/plots/baseline_bars.png", "results/timing_hard.json",
+]
+
+
+def _check_hard_rows(rows, what: str) -> None:
+    if len(rows) != 4:
+        fail(f"{what}: {len(rows)} baseline rows, want 4")
+    for r in rows:
+        sil = r["silhouette"]
+        if not (0.0 <= r["nmi"] <= 1.0 and -1.0 <= r["ari"] <= 1.0
+                and 0.0 <= r["purity"] <= 1.0 and sil is not None
+                and math.isfinite(sil) and -1.0 <= sil <= 1.0):
+            fail(f"{what}: row {r} out of range")
+        log(f"    22 {r['method']:40s} silhouette {sil:.5f} nmi "
+            f"{r['nmi']:.5f} ari {r['ari']:.5f} purity {r['purity']:.5f}")
+
+
+def phase_hard_pipeline(dev) -> dict:
+    """run_hard_pipeline at 2,924 tracks (scripts 18 -> 19 -> 20 -> 21 ->
+    22, tag "beta_test") with MFCC_HARD, TEXT_HARD (TF-IDF: no MiniLM
+    checkpoint), the Beta-VAE HardVaeConfig() and AeConfig(); then scripts
+    19 -> 20 -> 22 with HARD_CVAE on the same data but the port's
+    synthetic-MiniLM embeddings of the texts as lyrics_emb.npy: the
+    reference's fused width, 80 + 384 = 464."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from vae_hmc_tpu_torch.core.config import (HARD_CVAE, MFCC_HARD, TEXT_HARD,
+                                               AeConfig, HardVaeConfig,
+                                               Workspace)
+    from vae_hmc_tpu_torch.pipelines import hard
+    from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
+    from vae_hmc_tpu_torch.text import minilm
+
+    vae_cfg = HardVaeConfig()
+    log(f"hard tier end to end: run_hard_pipeline({MAIN_TRACKS} tracks, 20 s "
+        f"clips, Beta-VAE beta {vae_cfg.beta}, {vae_cfg.epochs} epochs at "
+        f"batch {vae_cfg.batch_size}, AE {AeConfig().epochs} epochs), with "
+        "UMAP")
+    source = SyntheticSource.make(MAIN_TRACKS, seed=42)
+    with tempfile.TemporaryDirectory() as root:
+        ws = Workspace(Path(root) / "beta")
+        out, launches, wall, peak = _run_tier(
+            dev, "run_hard_pipeline", lambda: hard.run_hard_pipeline(
+                source, ws, MFCC_HARD, TEXT_HARD, vae_cfg, AeConfig(),
+                tag="beta_test", with_viz=True, device_batch=MFCC_BATCH,
+                device=dev))
+        kind = out["figures"]
+        _check_files(ws.root, HARD_FILES, kind, "run_hard_pipeline")
+        info = json.loads((ws.data_hard / "build_info.json").read_text())
+        metrics = json.loads((ws.results_hard /
+                              "hard_metrics_vae_latents.json").read_text())
+        timing = json.loads((ws.results / "timing_hard.json").read_text())
+        _log_stages(timing, "timing_hard.json")
+        log(f"  build_info: audio {info['audio_feature_shape']}, text "
+            f"{info['text_feature_shape']} ({info['text_embedding_backend']})"
+            f", languages {info['unique_languages']}")
+        log(f"  script 20: {json.dumps(metrics)}; quality drift "
+            f"{out['quality_drift']['status']} ({out['quality_drift']['key']})")
+        if info["audio_feature_shape"] != [MAIN_TRACKS, 80]:
+            fail(f"audio_mfcc_stats shape {info['audio_feature_shape']}")
+        if not (0.0 <= metrics["nmi"] <= 1.0 and 0.0 <= metrics["purity"]
+                <= 1.0 and -1.0 <= metrics["ari"] <= 1.0):
+            fail(f"script 20 metrics out of range: {metrics}")
+        _check_hard_rows(out["baselines"], "run_hard_pipeline")
+        if out["quality_drift"]["status"] not in ("no-golden", "ok"):
+            fail(f"quality drift: {out['quality_drift']}")
+        for name, count in launches.items():
+            if count <= 0:
+                fail(f"kernel {name} was not launched by run_hard_pipeline")
+
+        log("hard tier scripts 19 -> 20 -> 22 with HARD_CVAE on synthetic-"
+            "MiniLM lyrics embeddings (fused width 464)")
+        ws2 = Workspace(Path(root) / "cvae")
+        shutil.copytree(ws.data_hard, ws2.data_hard)
+        texts = [source.lyrics_text(i) or "" for i in range(len(source))]
+        ids = np.load(ws2.data_hard / "track_ids.npy")
+        if not np.array_equal(ids, source.track_ids):
+            fail("script 18 dropped rows; the MiniLM texts would not align")
+        model, tok = minilm.synthetic_minilm(texts, device=dev)
+        np.save(ws2.data_hard / "lyrics_emb.npy",
+                minilm.encode_texts(model, tok, texts, batch_size=128))
+        del model
+
+        def cvae_chain():
+            t = hard.train_hard(ws2, HARD_CVAE, tag="cvae", device=dev)
+            c = hard.cluster_and_evaluate(ws2, seed=HARD_CVAE.seed,
+                                          tag="cvae", device=dev)
+            b = hard.compare_with_baselines(ws2, seed=HARD_CVAE.seed,
+                                            tag="cvae", device=dev)
+            return t, c, b
+
+        (t2, c2, b2), cvae_launches, cvae_wall, cvae_peak = _run_tier(
+            dev, "scripts 19/20/22 (CVAE)", cvae_chain)
+        ckpt = Path(ws2.root) / "models/hard/cvae_multimodal.pt"
+        meta = json.loads(ckpt.with_suffix(".pt.meta.json").read_text())
+        for rel in ("models/hard/cvae_multimodal.pt",
+                    "models/hard/cvae_multimodal_cvae.pt",
+                    "data/hard/latents_mu_cvae.npy",
+                    "results/hard/baseline_comparison_cvae.csv"):
+            if not (Path(ws2.root) / rel).exists():
+                fail(f"the CVAE chain did not write {rel}")
+        mu = t2["latents"].cpu().numpy()
+    log(f"  CVAE: input_dim {meta['input_dim']}, cond_dim {meta['cond_dim']},"
+        f" loss epoch 1 {t2['history'][0]['total']:.3f} -> "
+        f"{t2['history'][-1]['total']:.3f}; script 20: "
+        f"{json.dumps(c2['metrics'])}")
+    _check_hard_rows(b2, "the CVAE chain")
+    if meta["input_dim"] != 464 or meta["cond_dim"] != 6 or \
+            mu.shape != (MAIN_TRACKS, 16) or not np.isfinite(mu).all():
+        fail(f"CVAE: meta {meta}, latents {mu.shape}")
+    if cvae_launches["pairwise_dists"] <= 0:
+        fail("kernel 2 was not launched by the CVAE chain")
+    return {"seconds": timing["seconds"], "launches": launches,
+            "peak_bytes": peak, "wall": wall,
+            "cvae_launches": cvae_launches, "cvae_seconds": cvae_wall,
+            "cvae_peak_bytes": cvae_peak}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -720,17 +1055,24 @@ def main() -> None:
     t0 = time.perf_counter()
     smi = phase_identify_and_build()
     lyrics_rows = script11_rows()
-    kernels = [phase_logmel(dev), phase_distance(dev, lyrics_rows)]
+    kernels = [{**phase_logmel(dev), **phase_logmel_mfcc(dev)},
+               phase_distance(dev, lyrics_rows)]
     launches, tensors, source = phase_main_path(dev)
     sweep = phase_medium_sweep(dev, tensors, source, lyrics_rows)
     del tensors, source
     torch.cuda.empty_cache()
     phase_viz_on_card(dev)
     pipeline = phase_medium_pipeline(dev, lyrics_rows)
+    torch.cuda.empty_cache()
+    easy_tier = phase_easy_pipeline(dev)
+    hard_tier = phase_hard_pipeline(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sweep_launches"] = sweep["launches"][k["name"]]
         k["pipeline_launches"] = pipeline["launches"][k["name"]]
+        k["easy_launches"] = easy_tier["launches"][k["name"]]
+        k["hard_launches"] = hard_tier["launches"][k["name"]]
+        k["cvae_launches"] = hard_tier["cvae_launches"][k["name"]]
     log(f"done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

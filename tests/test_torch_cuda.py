@@ -1,6 +1,8 @@
 """GPU tests of the port: each CUDA kernel against its plain version on the
-card, the main path through both kernels at a small size, and MiniLM and the
-scripts 13/16 sweep on the card against the CPU.
+card (kernel 1 also in the MFCC mode at the easy and hard tiers' frame
+counts), the main path and the three tiers through both kernels at a small
+size, and MiniLM, MFCC stats and the scripts 13/16 sweep on the card
+against the CPU.
 
 Marked ``cuda``; they skip without a GPU.  The GPU machine has no JAX and
 tests/conftest.py imports it, so this file imports torch and numpy only and
@@ -329,3 +331,88 @@ def test_medium_pipeline_small_on_gpu(gpu, tmp_path):
     assert out["quality_drift"]["key"] == "medium:gpu:36"
     for xy in out["viz15"]["embeddings"]["umap"]:
         assert xy.shape[1] == 2 and np.isfinite(xy).all()
+
+
+@pytest.mark.parametrize("duration_s", [30.0, 20.0])     # T = 1,292 and 862
+def test_logmel_kernel_mfcc_mode_at_tier_shapes(gpu, duration_s):
+    """Kernel 1 in the MFCC mode (ref 1.0, 80 dB floor, no standardize) at
+    the easy and hard tiers' frame counts, against its plain version: raw
+    dB, atol 1e-3 as the other unstandardized cases."""
+    from vae_hmc_tpu_torch.core.config import MfccConfig
+    cfg = MfccConfig(duration_s=duration_s)
+    spec = _spec(gpu, 3, cfg, seed=int(duration_s))
+    assert spec.shape[2] == 1 + cfg.n_samples // cfg.hop_length
+    fb = tmel.mel_filterbank_tensor(cfg, gpu)
+    kw = dict(ref_max=False, top_db=80.0, standardize=False)
+    before = build.launch_counts()["mel_db_standardize"]
+    got = mel_db_standardize(spec, fb, bands=tmel.filterbank_bands_tensor(
+        cfg, gpu), weights=tmel.filterbank_weights_tensor(cfg, gpu), **kw)
+    assert build.launch_counts()["mel_db_standardize"] == before + 1
+    torch.testing.assert_close(got, mel_db_standardize_plain(spec, fb, **kw),
+                               rtol=0, atol=1e-3)
+
+
+def test_mfcc_stats_on_gpu_match_cpu(gpu):
+    """mfcc_stats_batch through kernel 1 on the card against the CPU's
+    plain path, full-length and masked to true lengths: dB-scale stats,
+    atol 1e-3."""
+    from vae_hmc_tpu_torch.core.config import MfccConfig
+    from vae_hmc_tpu_torch.ops.mfcc import mfcc_stats_batch
+    rng = np.random.default_rng(4)
+    cfg = MfccConfig(duration_s=20.0, min_duration_s=1.0)
+    y = torch.from_numpy(rng.normal(0, 0.1, (3, cfg.n_samples))
+                         .astype(np.float32))
+    lengths = torch.tensor([cfg.n_samples, 200000, 30000])
+    for kw in ({}, {"lengths": lengths}):
+        before = build.launch_counts()["mel_db_standardize"]
+        got = mfcc_stats_batch(y.to(gpu), cfg, **{
+            k: v.to(gpu) for k, v in kw.items()})
+        assert build.launch_counts()["mel_db_standardize"] == before + 1
+        want = mfcc_stats_batch(y, cfg, **kw)
+        assert got.shape == (3, 80)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-3)
+
+
+def test_easy_and_hard_pipelines_small_on_gpu(gpu, tmp_path):
+    """run_easy_pipeline and run_hard_pipeline at the CPU tests' sizes on
+    the card: their files (figures as .png or .npz) and both kernels."""
+    from vae_hmc_tpu_torch.core.config import (AeConfig, DenseVaeConfig,
+                                               HardVaeConfig, KMeansConfig,
+                                               MfccConfig, TextEmbedConfig,
+                                               Workspace)
+    from vae_hmc_tpu_torch.pipelines import easy, hard
+    from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
+    before = build.launch_counts()
+    out = easy.run_easy_pipeline(
+        SyntheticSource.make(n_tracks=48, seed=0), Workspace(tmp_path / "e"),
+        MfccConfig(duration_s=2.0), DenseVaeConfig(latent_dim=8, epochs=6,
+                                                   batch_size=16),
+        KMeansConfig(n_clusters=6, n_init=4), device_batch=16, device=gpu)
+    mid = build.launch_counts()
+    assert mid["mel_db_standardize"] - before["mel_db_standardize"] == 3
+    assert mid["pairwise_dists"] > before["pairwise_dists"]
+    ext = "." + out["figures"]
+    for rel in ("results/vae_basic/vae_basic.pt",
+                "results/vae_basic/scaler.joblib",
+                "results/compare_metrics/metrics.csv",
+                "results/viz_vae/plots/vae_umap" + ext,
+                "results/timing_easy.json"):
+        assert (tmp_path / "e" / rel).exists(), rel
+    assert out["quality_drift"]["key"] == "easy:gpu:48"
+    out = hard.run_hard_pipeline(
+        SyntheticSource.make(n_tracks=36, seed=2, lyrics_coverage=0.85),
+        Workspace(tmp_path / "h"), MfccConfig(duration_s=2.0,
+                                              min_duration_s=1.0),
+        TextEmbedConfig(), HardVaeConfig(hidden_dim=32, latent_dim=6,
+                                         epochs=3, batch_size=12),
+        AeConfig(hidden_dim=32, latent_dim=6, epochs=3, batch_size=12),
+        tag="t", device_batch=12, device=gpu)
+    after = build.launch_counts()
+    assert after["mel_db_standardize"] - mid["mel_db_standardize"] == 3
+    assert after["pairwise_dists"] - mid["pairwise_dists"] >= 5
+    assert len(out["baselines"]) == 4
+    for rel in ("models/hard/beta_vae_multimodal_t.pt",
+                "results/hard/baseline_comparison.csv",
+                "results/hard/plots/recon_examples" + ext,
+                "results/timing_hard.json"):
+        assert (tmp_path / "h" / rel).exists(), rel

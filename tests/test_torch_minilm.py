@@ -239,8 +239,12 @@ def test_embed_texts_backend_chain(tmp_path, monkeypatch, full_checkpoint):
     monkeypatch.delenv("VAE_HMC_MINILM_DIR", raising=False)
     monkeypatch.setenv("HF_HOME", str(tmp_path / "no_hf_cache"))
     texts = ["the cats sat in the rain", "Hello, World!"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        embed.embed_texts(texts, device="cpu")
+    # no directory: TF-IDF, as the JAX package (same vectors; sklearn is
+    # installed here, so both use its 318-word stop list)
+    emb, backend = embed.embed_texts(texts, device="cpu")
+    want, jbackend = jembed.embed_texts(texts)
+    assert backend == jbackend == "tfidf"
+    np.testing.assert_array_equal(emb, want)
     emb, backend = embed.embed_texts(texts, allow_tfidf=False, device="cpu")
     assert backend == "hashed"
     np.testing.assert_array_equal(emb, jembed.hashed_embedding(texts))

@@ -1,11 +1,13 @@
 """Configuration dataclasses, copied from the JAX package.
 
 Copies of ``vae_hmc_tpu.core.config`` ``Workspace``, ``MelConfig``,
-``ConvMMVaeConfig``, ``KMeansConfig``, ``SweepConfig``,
-``TextEmbedConfig``, ``TsneConfig``, ``UmapConfig`` (with the
-``UMAP_EASY``/``UMAP_HARD`` presets) and ``asdict`` with their reference
-citations, so the port never imports the JAX package.  Field values are
-identical; the tests compare them.
+``MfccConfig`` (``MFCC_EASY``, ``MFCC_HARD``), ``DenseVaeConfig``
+(``DENSE_VAE_EASY``), ``ConvMMVaeConfig``, ``HardVaeConfig``
+(``HARD_BETA_VAE``, ``HARD_CVAE``), ``AeConfig``, ``KMeansConfig``,
+``SweepConfig``, ``TextEmbedConfig`` (``TEXT_HARD``), ``TsneConfig``,
+``UmapConfig`` (``UMAP_EASY``, ``UMAP_HARD``) and ``asdict`` with their
+reference citations, so the port never imports the JAX package.  Field
+values are identical; the tests compare them.
 """
 from __future__ import annotations
 
@@ -78,6 +80,57 @@ class MelConfig:
 
 
 @dataclass(frozen=True)
+class MfccConfig:
+    """MFCC stats-pooled vector extraction.
+
+    Easy tier: reference scripts/06:56-89 (30 s clips).
+    Hard tier: reference scripts/18:73-97 (20 s clips, skip <1 s audio).
+    """
+
+    sample_rate: int = 22050       # 06:63 librosa.load(sr=22050)
+    duration_s: float = 30.0       # 06:207 --duration default 30.0
+    n_mfcc: int = 40               # 06:208
+    n_fft: int = 2048              # 06:209
+    hop_length: int = 512          # 06:210
+    n_mels: int = 128              # librosa.feature.mfcc default melspectrogram n_mels
+    fmin: float = 0.0
+    fmax: Optional[float] = None   # librosa default -> sr/2
+    pad_mode: str = "reflect"      # librosa stft center=True default
+    min_duration_s: float = 0.0    # hard tier skips <1 s clips (18:88-89)
+
+    @property
+    def n_samples(self) -> int:
+        return int(round(self.sample_rate * self.duration_s))
+
+    @property
+    def feature_dim(self) -> int:
+        return 2 * self.n_mfcc     # mean+std stats pool (06:83-87)
+
+
+MFCC_EASY = MfccConfig()                                        # script 06
+MFCC_HARD = MfccConfig(duration_s=20.0, min_duration_s=1.0)     # script 18:118, 18:88
+
+
+@dataclass(frozen=True)
+class DenseVaeConfig:
+    """MLP VAE used by the easy tier (reference scripts/06:145-179, 06:202-242)."""
+
+    input_dim: int = 80
+    hidden_dims: Tuple[int, ...] = (256, 256)  # 06:151-158 two hidden layers 256
+    latent_dim: int = 16           # 06:212
+    beta: float = 1.0              # 06:213
+    epochs: int = 40               # 06:214
+    batch_size: int = 128          # 06:215
+    learning_rate: float = 1e-3    # 06:216
+    seed: int = 42                 # 06:217
+    loss_reduction: str = "mean"   # 06:182-188: MSE mean + beta*KL mean-over-elements
+    standardize: bool = True       # 06:291-294 StandardScaler on X
+
+
+DENSE_VAE_EASY = DenseVaeConfig()
+
+
+@dataclass(frozen=True)
 class ConvMMVaeConfig:
     """Conv multimodal VAE, medium tier (reference scripts/12:15-23, 12:83-190)."""
 
@@ -98,6 +151,46 @@ class ConvMMVaeConfig:
     # Only "float32" is ported: parity with the reference's f32 torch
     # training is the hard constraint (TF32 is switched off, core.device).
     compute_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class HardVaeConfig:
+    """Beta-VAE / CVAE on early-fused features, hard tier (reference scripts/19:136-155)."""
+
+    input_dim: int = 464           # 80 mfcc-stats + 384 lyrics emb (19:171)
+    hidden_dim: int = 256          # 19:141
+    latent_dim: int = 16           # 19:140
+    beta: float = 4.0              # 19:139
+    epochs: int = 50               # 19:142
+    batch_size: int = 256          # 19:143
+    learning_rate: float = 1e-3    # 19:144
+    seed: int = 42
+    use_cvae: bool = False         # 19:146 --cvae flag
+    cond_genre: bool = False       # 19 --cond_on genre: CVAE genre one-hot
+    cond_lang: bool = False        # 19 --cond_on lang: CVAE language one-hot
+    include_genre_in_input: bool = False  # 19:174-175 one-hot appended to X
+    include_lang_in_input: bool = False   # 19:176-177 (independent of CVAE)
+    n_genres: int = 6
+    n_langs: int = 4
+    loss_reduction: str = "sum"    # 19:226-228 per-sample SUM, then batch mean
+    kl_anneal_epochs: int = 0      # optional KL warmup (BASELINE.json config 4)
+
+
+HARD_BETA_VAE = HardVaeConfig(beta=4.0)
+HARD_CVAE = HardVaeConfig(beta=4.0, use_cvae=True, cond_genre=True)
+
+
+@dataclass(frozen=True)
+class AeConfig:
+    """Deterministic autoencoder baseline (reference scripts/22:66-88, 22:139-171)."""
+
+    input_dim: int = 464
+    hidden_dim: int = 256          # 22:70-80 two 256 layers each side
+    latent_dim: int = 16           # 22:118 z=16
+    epochs: int = 30               # 22:146
+    batch_size: int = 256
+    learning_rate: float = 1e-3
+    seed: int = 42
 
 
 @dataclass(frozen=True)
@@ -132,6 +225,9 @@ class TextEmbedConfig:
     min_chars: int = 30             # 11:43 skip <30 chars
     tfidf_max_features: int = 2000  # 18:221 fallback TfidfVectorizer(max_features=2000)
     batch_size: int = 64
+
+
+TEXT_HARD = TextEmbedConfig(min_chars=1)
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,5 @@
 """Full-scale quality goldens: a drift tripwire (port of
-``vae_hmc_tpu.core.goldens`` for the medium tier).
+``vae_hmc_tpu.core.goldens`` for the three tiers).
 
 The repository commits QUALITY_GOLDENS.json with certified full-scale
 quality columns; a tier run at a matching (tier, platform, n_tracks) key
@@ -13,8 +13,8 @@ compares its freshly written artifacts against them and reports a
     JAX package's ``:tpu:`` entries, so every run of the port reads
     "no-golden" until the port certifies its own;
   * VAE_HMC_QUALITY_STRICT=1 escalates drift to a RuntimeError.
-The file is read, never written.  The easy and hard tiers' extractors come
-with those tiers.
+The file is read, never written.  ``extract_bench`` (bench.py's headline
+row) comes with the port's benchmark.
 """
 from __future__ import annotations
 
@@ -33,6 +33,8 @@ GOLDENS_FILENAME = "QUALITY_GOLDENS.json"
 # that moves labels but keeps silhouette identical is still drift.
 _MEDIUM_COLS = ("n_clusters_found", "n_noise", "silhouette",
                 "davies_bouldin", "ari")
+_EASY_COLS = ("silhouette", "calinski_harabasz", "pca_variance")
+_HARD_BASELINE_COLS = ("silhouette", "nmi", "ari", "purity")
 
 
 def goldens_path() -> Path:
@@ -63,6 +65,14 @@ def _csv_rows(path: Path) -> List[Dict[str, str]]:
         return [dict(r) for r in csv.DictReader(f)]
 
 
+def extract_easy(results_dir: Path) -> Dict[str, Dict[str, float]]:
+    """compare_metrics/metrics.csv (script 09 contract): every method|input
+    row's silhouette / CH / explained-variance columns."""
+    rows = _csv_rows(results_dir / "compare_metrics" / "metrics.csv")
+    return {f"{r['method']}|{r['input']}":
+            {c: _fnum(r.get(c)) for c in _EASY_COLS} for r in rows}
+
+
 def extract_medium(results_dir: Path) -> Dict[str, Dict[str, float]]:
     """medium_clustering_metrics_all.csv (script 13 contract): the full
     fixed-k suite — 3 representations x all algos."""
@@ -71,7 +81,23 @@ def extract_medium(results_dir: Path) -> Dict[str, Dict[str, float]]:
             {c: _fnum(r.get(c)) for c in _MEDIUM_COLS} for r in rows}
 
 
-_EXTRACTORS = {"medium": extract_medium}
+def extract_hard(results_dir: Path) -> Dict[str, Dict[str, float]]:
+    """hard/hard_metrics_vae_latents.json (script 20) + every row of
+    hard/baseline_comparison.csv (script 22)."""
+    out: Dict[str, Dict[str, float]] = {}
+    mp = results_dir / "hard" / "hard_metrics_vae_latents.json"
+    metrics = json.loads(mp.read_text())
+    out["vae_latents"] = {k: _fnum(v) for k, v in metrics.items()
+                          if _fnum(v) is not None}
+    for r in _csv_rows(results_dir / "hard" / "baseline_comparison.csv"):
+        key = r.get("method") or r.get("representation") or "?"
+        out[f"baseline|{key}"] = {c: _fnum(r.get(c))
+                                  for c in _HARD_BASELINE_COLS if c in r}
+    return out
+
+
+_EXTRACTORS = {"easy": extract_easy, "medium": extract_medium,
+               "hard": extract_hard}
 
 
 def _values_equal(a: Optional[float], b: Optional[float],

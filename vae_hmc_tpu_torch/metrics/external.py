@@ -1,6 +1,9 @@
-"""Adjusted Rand index (copy of ``vae_hmc_tpu.metrics.external``; numpy).
+"""External (label-vs-label) clustering metrics: ARI, NMI, purity (copy of
+``vae_hmc_tpu.metrics.external``; numpy).
 
-Contingency-matrix based, matching sklearn.metrics.adjusted_rand_score;
+Contingency-matrix based, matching sklearn.metrics.adjusted_rand_score and
+normalized_mutual_info_score (average_method='arithmetic') and the
+reference's hand-rolled crosstab-max purity (reference scripts/20:29-37);
 reductions in float64 on the host (the matrix is k_a x k_b, tiny).
 """
 from __future__ import annotations
@@ -41,3 +44,44 @@ def adjusted_rand_index(labels_a, labels_b) -> float:
     if denom == 0:
         return 1.0
     return float((sum_comb - expected) / denom)
+
+
+def _entropy(counts: np.ndarray) -> float:
+    p = counts[counts > 0].astype(np.float64)
+    p = p / p.sum()
+    return float(-(p * np.log(p)).sum())
+
+
+def mutual_info(labels_a, labels_b) -> float:
+    m = contingency_matrix(labels_a, labels_b).astype(np.float64)
+    n = m.sum()
+    pij = m / n
+    pi = pij.sum(axis=1, keepdims=True)
+    pj = pij.sum(axis=0, keepdims=True)
+    nz = pij > 0
+    return float((pij[nz] * (np.log(pij[nz]) - np.log((pi @ pj)[nz]))).sum())
+
+
+def normalized_mutual_info(labels_a, labels_b) -> float:
+    """sklearn.metrics.normalized_mutual_info_score (arithmetic mean of the
+    entropies, the only normalization the hard tier uses)."""
+    a = _as_codes(labels_a)
+    b = _as_codes(labels_b)
+    ha = _entropy(np.bincount(a))
+    hb = _entropy(np.bincount(b))
+    if ha == 0.0 and hb == 0.0:
+        return 1.0  # both labelings single-cluster: sklearn special case
+    mi = mutual_info(a, b)
+    denom = 0.5 * (ha + hb)
+    if denom == 0.0:
+        return 0.0
+    return float(np.clip(mi / denom, 0.0, 1.0))
+
+
+def purity(cluster_labels, true_labels) -> float:
+    """Crosstab-max purity (reference scripts/20:29-37): for each cluster take
+    the majority true class; purity = sum(majorities) / N."""
+    m = contingency_matrix(cluster_labels, true_labels)
+    if m.sum() == 0:
+        return 0.0
+    return float(m.max(axis=1).sum() / m.sum())

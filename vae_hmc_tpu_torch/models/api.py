@@ -1,11 +1,15 @@
-"""Train/export entry point of the conv multimodal VAE (port of
-``vae_hmc_tpu.models.api.train_conv_mm_vae``; reference scripts/12).
+"""Train/export entry points (port of ``vae_hmc_tpu.models.api``
+``train_conv_mm_vae``, ``train_dense_vae``, ``train_hard_vae`` and
+``train_ae``; reference scripts 06, 12, 19 and 22).
 
-Model init -> training -> posterior-mean latent export, returning
-(model, history, mu).  Weights start from torch's default initialization
-under ``cfg.seed`` (the JAX package uses the same U(-1/sqrt(fan_in), ...)
-family for its kernels, so loss scales are comparable; exact RNG parity is
-impossible).
+Each runs model init -> training -> posterior-mean latent export and
+returns (model, history, latents on the device).  Weights start from
+torch's default initialization under ``cfg.seed`` (the JAX package uses
+the same U(-1/sqrt(fan_in), ...) family, so loss scales are comparable;
+exact RNG parity is impossible).  `model`, `perms` and `eps_fn` are test
+hooks: carried-over weights and injected randomness.  The JAX package's
+``prepare_*`` (AOT-compiled trainers built ahead from shapes) have no
+counterpart: nothing here compiles.
 """
 from __future__ import annotations
 
@@ -14,9 +18,12 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig
+from vae_hmc_tpu_torch.core.config import (AeConfig, ConvMMVaeConfig,
+                                           DenseVaeConfig, HardVaeConfig)
 from vae_hmc_tpu_torch.core.device import resolve_device
+from vae_hmc_tpu_torch.models.ae import AE
 from vae_hmc_tpu_torch.models.conv_mm_vae import ConvMMVAE
+from vae_hmc_tpu_torch.models.dense_vae import DenseVAE
 from vae_hmc_tpu_torch.models.train import encode_in_batches, fit
 
 
@@ -27,12 +34,18 @@ def build_conv_mm_vae(cfg: ConvMMVaeConfig, n_mels: int, n_frames: int,
     if cfg.compute_dtype != "float32":
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: only float32 "
                          "is ported")
+    return _seeded(cfg.seed, lambda: ConvMMVAE(
+        n_mels=n_mels, n_frames=n_frames, channels=tuple(cfg.audio_channels),
+        fc_dim=cfg.audio_fc_dim, latent_dim=cfg.latent_dim,
+        lyrics_dim=lyrics_dim))
+
+
+def _seeded(seed: int, make: Callable[[], torch.nn.Module]) -> torch.nn.Module:
+    """make() with torch's CPU generator seeded by `seed`, leaving the
+    global torch RNG as it was."""
     with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.seed)
-        return ConvMMVAE(n_mels=n_mels, n_frames=n_frames,
-                         channels=tuple(cfg.audio_channels),
-                         fc_dim=cfg.audio_fc_dim, latent_dim=cfg.latent_dim,
-                         lyrics_dim=lyrics_dim)
+        torch.manual_seed(seed)
+        return make()
 
 
 def train_conv_mm_vae(x, lyr, mask, cfg: ConvMMVaeConfig, device="cuda",
@@ -61,3 +74,76 @@ def train_conv_mm_vae(x, lyr, mask, cfg: ConvMMVaeConfig, device="cuda",
     mu = encode_in_batches(lambda xb, lb, mb: model.encode(xb, lb, mb)[0],
                            arrays, batch_size=256)
     return model, res.history, mu
+
+
+def _rows(x, dev) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def train_dense_vae(x, cfg: DenseVaeConfig, device="cuda",
+                    model: Optional[DenseVAE] = None,
+                    perms: Optional[Sequence[np.ndarray]] = None,
+                    eps_fn: Optional[Callable] = None):
+    """Easy-tier basic VAE (reference scripts/06): x is the standardized
+    (N, 80) MFCC-stats matrix (numpy or a tensor).
+    -> (model, history, mu (N, latent) on `device`)."""
+    dev = resolve_device(device)
+    xt = _rows(x, dev)
+    if model is None:
+        model = _seeded(cfg.seed, lambda: DenseVAE(
+            xt.shape[1], tuple(cfg.hidden_dims), cfg.latent_dim))
+    model = model.to(dev)
+    res = fit(model, (xt,), epochs=cfg.epochs, batch_size=cfg.batch_size,
+              learning_rate=cfg.learning_rate, beta=cfg.beta,
+              reduction=cfg.loss_reduction, seed=cfg.seed, perms=perms,
+              eps_fn=eps_fn)
+    model.eval()
+    mu = encode_in_batches(lambda xb: model.encode(xb)[0], (xt,))
+    return model, res.history, mu
+
+
+def train_hard_vae(x, cfg: HardVaeConfig, cond=None, device="cuda",
+                   model: Optional[DenseVAE] = None,
+                   perms: Optional[Sequence[np.ndarray]] = None,
+                   eps_fn: Optional[Callable] = None):
+    """Hard-tier Beta-VAE / CVAE (reference scripts/19): x is the
+    early-fused (N, D) feature matrix (one-hots already appended where the
+    config asks, 19:174-177); `cond` the CVAE's conditioning one-hot
+    (19:180-189), used only when cfg.use_cvae.
+    -> (model, history, mu (N, latent) on `device`)."""
+    dev = resolve_device(device)
+    arrays = [_rows(x, dev)]
+    if cond is not None and cfg.use_cvae:
+        arrays.append(_rows(cond, dev))
+    cond_dim = int(arrays[1].shape[1]) if len(arrays) > 1 else 0
+    if model is None:
+        model = _seeded(cfg.seed, lambda: DenseVAE(
+            arrays[0].shape[1], (cfg.hidden_dim, cfg.hidden_dim),
+            cfg.latent_dim, cond_dim))
+    model = model.to(dev)
+    res = fit(model, arrays, epochs=cfg.epochs, batch_size=cfg.batch_size,
+              learning_rate=cfg.learning_rate, beta=cfg.beta,
+              reduction=cfg.loss_reduction, seed=cfg.seed,
+              kl_anneal_epochs=cfg.kl_anneal_epochs, perms=perms,
+              eps_fn=eps_fn)
+    model.eval()
+    mu = encode_in_batches(lambda *b: model.encode(*b)[0], arrays)
+    return model, res.history, mu
+
+
+def train_ae(x, cfg: AeConfig, device="cuda", model: Optional[AE] = None,
+             perms: Optional[Sequence[np.ndarray]] = None):
+    """Deterministic AE baseline (reference scripts/22:139-171): MSE mean,
+    no KL.  -> (model, history, z (N, latent) on `device`)."""
+    dev = resolve_device(device)
+    xt = _rows(x, dev)
+    if model is None:
+        model = _seeded(cfg.seed, lambda: AE(xt.shape[1], cfg.hidden_dim,
+                                             cfg.latent_dim))
+    model = model.to(dev)
+    res = fit(model, (xt,), epochs=cfg.epochs, batch_size=cfg.batch_size,
+              learning_rate=cfg.learning_rate, seed=cfg.seed,
+              variational=False, perms=perms)
+    model.eval()
+    z = encode_in_batches(model.encode, (xt,))
+    return model, res.history, z

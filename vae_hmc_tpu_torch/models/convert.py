@@ -1,6 +1,6 @@
-"""Carry Flax weights across into the port's modules: ``ConvMMVAE`` and
-``MiniLM``; and ``ConvMMVAE``'s weights back into the Flax tree, for
-checkpoints in the JAX package's format.
+"""Carry Flax weights across into the port's modules: ``ConvMMVAE``,
+``DenseVAE``, ``AE`` and ``MiniLM``; and the VAE and AE weights back into
+the Flax tree, for checkpoints in the JAX package's format.
 
 The inverse of ``vae_hmc_tpu.models.torch_port`` (linear, conv2d,
 conv_transpose2d and the NCHW-flatten seams), written here so the port
@@ -103,6 +103,32 @@ def conv_mm_vae_flax_params(state_dict: Dict[str, torch.Tensor],
         "kernel": contig(w.reshape(c, eh, ew, -1).transpose(3, 1, 2, 0)
                          .reshape(w.shape[1], -1)),
         "bias": contig(b.reshape(c, eh, ew).transpose(1, 2, 0).reshape(-1))}
+    return params
+
+
+def linear_state_dict(params: Params) -> Dict[str, torch.Tensor]:
+    """Flax ``params`` of a model made of Dense layers only (``DenseVAE``:
+    enc1.., mu, logvar, dec1.., out; ``AE``: e1..d3), the tree under
+    ``"params"`` as numpy -> the port module's state_dict (its Linear
+    layers carry the same names)."""
+    sd = {}
+    for name, p in params.items():
+        sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+        sd[f"{name}.bias"] = _t(p["bias"])
+    return sd
+
+
+def linear_flax_params(state_dict: Dict[str, torch.Tensor]) -> Params:
+    """``linear_state_dict`` run backwards: a state_dict of named Linear
+    layers -> Flax ``params`` (numpy, kernels (in, out)), for the
+    checkpoint writer."""
+    params: Params = {}
+    for key, t in state_dict.items():
+        name, leaf = key.rsplit(".", 1)
+        a = _np(t)
+        params.setdefault(name, {})[
+            "kernel" if leaf == "weight" else "bias"] = (
+            np.ascontiguousarray(a.T) if leaf == "weight" else a)
     return params
 
 

@@ -34,13 +34,18 @@ def _beta_at(beta: float, epoch: int, anneal_epochs: int) -> float:
 def fit(model: torch.nn.Module, arrays: Sequence[torch.Tensor], *,
         epochs: int, batch_size: int, learning_rate: float,
         beta: float = 1.0, reduction: str = "mean", seed: int = 42,
-        kl_anneal_epochs: int = 0,
+        kl_anneal_epochs: int = 0, variational: bool = True,
         perms: Optional[Sequence[np.ndarray]] = None,
         eps_fn: Optional[Callable[[int, int], torch.Tensor]] = None
         ) -> FitResult:
     """Train `model` in place on row-aligned `arrays` (arrays[0] is the
-    reconstruction target; all live on the model's device).
+    reconstruction target; every array goes to the model, as the CVAE's
+    condition does; all live on the model's device).
 
+    variational=True: `model(*batch, eps=...)` -> (xhat, mu, logvar) and
+    the ELBO of `reduction`.  variational=False (the AE baseline):
+    `model(*batch)` -> (xhat, ...) and the MSE mean, with kl = 0 in the
+    history (``vae_hmc_tpu/models/train.py:228-231``).
     `perms[e]` replaces epoch e's permutation and `eps_fn(epoch, step)`
     the reparameterization noise of a step (test hooks)."""
     n = int(arrays[0].shape[0])
@@ -53,9 +58,14 @@ def fit(model: torch.nn.Module, arrays: Sequence[torch.Tensor], *,
 
     def step(idx, epoch, i, beta_now):
         batch = [a[idx] for a in arrays]
-        eps = None if eps_fn is None else eps_fn(epoch, i)
-        xhat, mu, logvar = model(*batch, eps=eps)
-        loss, aux = elbo_loss(xhat, batch[0], mu, logvar, beta_now, reduction)
+        if variational:
+            eps = None if eps_fn is None else eps_fn(epoch, i)
+            xhat, mu, logvar = model(*batch, eps=eps)
+            loss, aux = elbo_loss(xhat, batch[0], mu, logvar, beta_now,
+                                  reduction)
+        else:
+            loss = torch.mean((model(*batch)[0] - batch[0]) ** 2)
+            aux = {"total": loss, "recon": loss, "kl": torch.zeros_like(loss)}
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()

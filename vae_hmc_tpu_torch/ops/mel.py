@@ -105,21 +105,24 @@ def _filterbank_and_bands(sr: int, n_fft: int, n_mels: int, fmin: float,
     return fb, bands, filterbank_weights(fb, bands)
 
 
-def _cached(cfg: MelConfig):
+def _cached(cfg):
+    """The filterbank, its bands and packed weights for a ``MelConfig`` or
+    ``MfccConfig`` (any config with ``sample_rate``, ``n_fft``, ``n_mels``,
+    ``fmin`` and ``fmax``), cached by those five values."""
     return _filterbank_and_bands(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
                                  cfg.fmin, cfg.fmax)
 
 
-def mel_filterbank_tensor(cfg: MelConfig, device) -> torch.Tensor:
+def mel_filterbank_tensor(cfg, device) -> torch.Tensor:
     return torch.tensor(_cached(cfg)[0], device=device)
 
 
-def filterbank_bands_tensor(cfg: MelConfig, device) -> torch.Tensor:
+def filterbank_bands_tensor(cfg, device) -> torch.Tensor:
     """``filterbank_bands`` of the config's filterbank, on `device`."""
     return torch.tensor(_cached(cfg)[1], device=device)
 
 
-def filterbank_weights_tensor(cfg: MelConfig, device) -> torch.Tensor:
+def filterbank_weights_tensor(cfg, device) -> torch.Tensor:
     """``filterbank_weights`` of the config's filterbank, on `device`."""
     return torch.tensor(_cached(cfg)[2], device=device)
 

@@ -57,5 +57,12 @@ class StandardScaler:
 
 
 def standardize(x, device="cuda") -> torch.Tensor:
-    """One-shot fit_transform returning a device tensor."""
+    """One-shot fit_transform returning a float32 tensor.  A tensor is
+    standardized on its own device (float32 statistics, the same
+    semantics); host numpy goes through ``StandardScaler`` (float64
+    statistics) to `device`."""
+    if isinstance(x, torch.Tensor):
+        mean = torch.mean(x, dim=0)
+        std = torch.std(x, dim=0, correction=0)
+        return (x - mean) / torch.where(std == 0.0, 1.0, std)
     return StandardScaler().fit_transform(x, device)

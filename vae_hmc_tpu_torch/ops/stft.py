@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -91,3 +92,26 @@ def row_aligned(x: torch.Tensor) -> torch.Tensor:
     buf[:, :, t:].zero_()
     buf[:, :, :t].copy_(x)
     return buf[:, :, :t]
+
+
+def pad_with_reflect_tail(y: np.ndarray, target_len: int, n_fft: int) -> np.ndarray:
+    """Stage a variable-length track into a fixed (target_len,) buffer for the
+    masked-stats path (copy of the JAX package's, numpy): zero-pad, but write
+    the first n_fft//2 padded samples as the np.pad 'reflect' continuation of
+    the signal.  This makes the frames near the track's true end identical
+    to librosa's center=True reflect padding of the *unpadded* signal (hard
+    tier, reference scripts/18:88: clips are loaded at true length, not
+    padded), so masked stats are exact rather than approximately right at
+    the boundary.
+    """
+    y = np.asarray(y)
+    n = y.shape[-1]
+    if n >= target_len:
+        return y[..., :target_len]
+    out = np.zeros(y.shape[:-1] + (target_len,), dtype=y.dtype)
+    out[..., :n] = y
+    p = min(n_fft // 2, target_len - n, n - 1)
+    if p > 0:
+        out[..., n:n + p] = y[..., n - 2:n - 2 - p:-1] if n - 2 - p >= 0 \
+            else y[..., n - 2::-1][..., :p]
+    return out

@@ -1,12 +1,16 @@
-"""Log-mel feature extraction driver (port of
-``vae_hmc_tpu.pipelines.features.build_logmel``).
+"""Feature extraction loops (port of ``vae_hmc_tpu.pipelines.features``
+``build_mfcc_stats`` and ``build_logmel``).
 
 Per device batch: the source synthesizes (or stages) waveforms on the
 device, kernel 1 (``ops.kernels.logmel``) turns them into standardized
-log-mel images, and the per-track finite flags stay on the device until one
-fetch after the loop.  Rows with decode errors or non-finite features are
-dropped and reported in the ``BuildReport`` rows contract
-``(track_id, audio_path, status, reason)``.
+log-mel images or, in its MFCC mode, the dB mel spectrogram that
+``ops.mfcc`` turns into MFCC stats; per-batch results stay on the device
+until one fetch after the loop.  Rows with decode errors, too-short clips
+(hard preset) or non-finite features are dropped and reported in the
+``BuildReport`` rows contract ``(track_id, audio_path, status, reason)``.
+The JAX package's fused synth -> feature scan programs are not ported: they
+cut TPU dispatches, and the port's source synthesizes each batch on the
+device already.
 """
 from __future__ import annotations
 
@@ -18,9 +22,11 @@ import numpy as np
 import torch
 
 from vae_hmc_tpu_torch.core.artifacts import save_csv_rows
-from vae_hmc_tpu_torch.core.config import MelConfig
+from vae_hmc_tpu_torch.core.config import MelConfig, MfccConfig
 from vae_hmc_tpu_torch.core.device import resolve_device
 from vae_hmc_tpu_torch.ops.kernels.logmel import logmel_standardized
+from vae_hmc_tpu_torch.ops.mfcc import mfcc_stats_batch
+from vae_hmc_tpu_torch.ops.stft import pad_with_reflect_tail
 
 
 @dataclass
@@ -35,6 +41,77 @@ class BuildReport:
                              self.rows)
 
 
+def _path_str(source, i: int) -> str:
+    paths = getattr(source, "paths", None)
+    return (str(paths[i]) if paths is not None
+            else f"synthetic://{int(source.track_ids[i])}")
+
+
+def build_mfcc_stats(source, cfg: MfccConfig, device_batch: int = 64,
+                     strict: bool = False, device="cuda"
+                     ) -> Tuple[np.ndarray, np.ndarray, BuildReport]:
+    """-> (X (N_ok, 2*n_mfcc) float32 on the host, track_ids (N_ok,), report).
+
+    Easy preset (fixed-length pad, reference 06:56-89): every track padded /
+    trimmed to duration_s, stats over all frames.
+    Hard preset (min_duration_s > 0, reference 18:73-97): tracks shorter
+    than min_duration are skipped; a batch holding a short clip is staged on
+    the host with its reflect tail (``ops.stft.pad_with_reflect_tail``) and
+    its stats are masked to the true frame counts.  The stats of every batch
+    stay on the device and cross to the host in one fetch after the loop."""
+    dev = resolve_device(device)
+    n = len(source)
+    masked = cfg.min_duration_s > 0
+    min_len = int(cfg.sample_rate * cfg.min_duration_s)
+    f_parts, meta = [], []            # meta: (tid, pstr, err, length)
+    for start in range(0, n, device_batch):
+        idx = list(range(start, min(start + device_batch, n)))
+        batch, lengths, errors = source.waveforms(idx, cfg.duration_s, dev)
+        if strict:
+            for r, e in enumerate(errors):
+                if e is not None:
+                    raise RuntimeError(
+                        f"track {int(source.track_ids[idx[r]])}: {e}")
+        if masked and int(np.min(lengths)) < cfg.n_samples:
+            # keep true lengths: short clips are NOT padded into the stats
+            # (reference 18:88 loads duration<=20 s at true length); the
+            # reflect tail makes boundary frames exact (see ops.stft)
+            host = batch.cpu().numpy()
+            staged = np.stack([
+                pad_with_reflect_tail(host[r, :max(int(lengths[r]), 2)],
+                                      cfg.n_samples, cfg.n_fft)
+                for r in range(len(idx))])
+            f = mfcc_stats_batch(torch.from_numpy(staged).to(dev), cfg,
+                                 lengths=torch.as_tensor(lengths, device=dev))
+        else:
+            # all clips full-length: masked stats == plain stats
+            f = mfcc_stats_batch(batch, cfg)
+        f_parts.append(f)
+        meta.extend((int(source.track_ids[i]), _path_str(source, i),
+                     errors[r], int(lengths[r])) for r, i in enumerate(idx))
+    if not f_parts:
+        raise RuntimeError("no tracks produced features")
+    f_all = torch.cat(f_parts).cpu().numpy()                 # one fetch
+    feats, ids, rows = [], [], []
+    for r, (tid, pstr, err, length) in enumerate(meta):
+        if err is not None:
+            rows.append((tid, pstr, "error", err))
+            continue
+        if masked and length < min_len:            # <1 s skip (ref 18:88)
+            rows.append((tid, pstr, "skipped", "too_short"))
+            continue
+        if not np.all(np.isfinite(f_all[r])):
+            rows.append((tid, pstr, "error", "non_finite_features"))
+            continue
+        feats.append(f_all[r])
+        ids.append(tid)
+        rows.append((tid, pstr, "ok", ""))
+    if not feats:
+        raise RuntimeError("no tracks produced features")
+    return (np.stack(feats).astype(np.float32),
+            np.asarray(ids, dtype=np.int64), BuildReport(rows))
+
+
 def build_logmel(source, cfg: MelConfig, device_batch: int = 128,
                  device="cuda") -> Tuple[torch.Tensor, np.ndarray, BuildReport]:
     """-> (X (N_ok, n_mels, T) float32 on `device`, track_ids (N_ok,), report).
@@ -44,12 +121,6 @@ def build_logmel(source, cfg: MelConfig, device_batch: int = 128,
     T = 1 + n_samples // hop."""
     dev = resolve_device(device)
     n = len(source)
-    paths = getattr(source, "paths", None)
-
-    def _pstr(i):
-        return (str(paths[i]) if paths is not None
-                else f"synthetic://{int(source.track_ids[i])}")
-
     feats, finite_parts, meta = [], [], []   # meta: (tid, pstr, err-or-None)
     for start in range(0, n, device_batch):
         idx = list(range(start, min(start + device_batch, n)))
@@ -61,8 +132,8 @@ def build_logmel(source, cfg: MelConfig, device_batch: int = 128,
         if keep:
             finite_parts.append(torch.isfinite(x).all(dim=2).all(dim=1))
             feats.append(x)
-        meta.extend((int(source.track_ids[i]), _pstr(i), errors[r])
-                    for r, i in enumerate(idx))
+        meta.extend((int(source.track_ids[i]), _path_str(source, i),
+                     errors[r]) for r, i in enumerate(idx))
     if not feats:
         raise RuntimeError("no tracks produced features")
     finite = torch.cat(finite_parts).cpu().numpy()          # one small fetch

@@ -57,18 +57,8 @@ from vae_hmc_tpu_torch.core.device import (as_rows, resolve_device,
                                            synchronize)
 from vae_hmc_tpu_torch.core.profiling import StageTimer, log
 from vae_hmc_tpu_torch.ops.pca import PCA
-from vae_hmc_tpu_torch.ops.scaler import StandardScaler
+from vae_hmc_tpu_torch.ops import scaler
 from vae_hmc_tpu_torch.viz import plots
-
-
-def _standardize(x, device):
-    """sklearn StandardScaler (ddof 0, zero-variance columns unscaled): a
-    tensor on its own device, host numpy through ``ops.scaler``."""
-    if isinstance(x, torch.Tensor):
-        mean = torch.mean(x, dim=0)
-        std = torch.std(x, dim=0, correction=0)
-        return (x - mean) / torch.where(std == 0.0, 1.0, std)
-    return StandardScaler().fit_transform(x, device)
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +257,7 @@ def _build_rep(name, x, ids, genre_map, standardize, pca_dim: int = 0,
     else:
         x = np.asarray(x, np.float32).reshape(len(x), -1)
     if standardize:
-        x = _standardize(x, device)
+        x = scaler.standardize(x, device)
     if pca_dim and x.shape[1] > pca_dim:   # optional reduction (ref 13:172-174)
         # explicit clamp for tiny synthetic runs (N < pca_dim); an oversize
         # k raises otherwise (sklearn parity)
@@ -494,7 +484,7 @@ def visualize_clustering(ws: Workspace, repr_path: Path, ids_path: Path,
     ids = (np.asarray(ids_arr, dtype=np.int64) if ids_arr is not None
            else np.load(ids_path).astype(np.int64))
     if standardize:
-        x = _standardize(x, device)
+        x = scaler.standardize(x, device)
     if yhat_arr is not None:
         yhat = np.asarray(yhat_arr)
     elif method == "kmeans":
@@ -586,7 +576,7 @@ def side_by_side_and_dbscan_sweep(
     x_mel = _get("baseline_mel_flat", "audio_cnn_mel_X.npy")
     x_lyr = _get("baseline_lyrics_only", "lyrics_embeddings.npy")
     if standardize:
-        x_vae, x_mel, x_lyr = (_standardize(v, device)
+        x_vae, x_mel, x_lyr = (scaler.standardize(v, device)
                                for v in (x_vae, x_mel, x_lyr))
     _mark("load")
     rep_by_name = ({r.name: r for r in reps}

@@ -6,8 +6,8 @@ sentence-transformers -> TF-IDF fallback, scripts/18:209-222):
   1. MiniLM with local weights (env VAE_HMC_MINILM_DIR, an explicit
      model_dir argument, or the HF cache) -> (M, 384) normalized — the
      reference's scripts/11 behavior;
-  2. TF-IDF — not ported yet (the hard tier's backend, ROADMAP Queue 1
-     item 5): asking for it raises;
+  2. TF-IDF (max_features cap, english stop words) — the reference's own
+     hard-tier fallback (18:221-222), ``text.tfidf``;
   3. 'hashed': the deterministic 384-d token-hash bag embedding,
      L2-normalized (a copy of the JAX package's), flagged in the returned
      backend name.
@@ -23,6 +23,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from vae_hmc_tpu_torch.core.config import TextEmbedConfig
+from vae_hmc_tpu_torch.text.tfidf import TfidfVectorizer
 
 _TOKEN = re.compile(r"(?u)\b\w\w+\b")
 
@@ -69,16 +70,18 @@ def embed_texts(texts: List[str], cfg: TextEmbedConfig = TextEmbedConfig(),
     MiniLM runs when a model directory is found; the chain falls through to
     the next backend only when none is.  A directory that is found but
     fails to load raises (the JAX package falls through on any error).
-    With no directory, allow_tfidf=True raises NotImplementedError (TF-IDF
-    is not ported yet) and allow_tfidf=False gives the hashed backend."""
+    With no directory, allow_tfidf=True gives TF-IDF (D = the corpus's
+    vocabulary, at most cfg.tfidf_max_features) and allow_tfidf=False the
+    hashed backend."""
     mdir = Path(model_dir) if model_dir else find_minilm_dir(cfg)
     if mdir is not None:
         from vae_hmc_tpu_torch.text.minilm import encode_texts_minilm
         return encode_texts_minilm(list(texts), mdir, cfg.batch_size,
                                    device=device), "minilm"
     if allow_tfidf:
-        raise NotImplementedError(
-            "no MiniLM checkpoint found, and the TF-IDF backend is not ported "
-            "yet (ROADMAP Queue 1 item 5, hard tier); pass allow_tfidf=False "
-            "for the hashed backend")
+        vect = TfidfVectorizer(max_features=cfg.tfidf_max_features,
+                               stop_words="english")
+        emb = vect.fit_transform([t if (t or "").strip() else " "
+                                  for t in texts])
+        return emb.astype(np.float32), "tfidf"
     return hashed_embedding(list(texts), cfg.embed_dim), "hashed"

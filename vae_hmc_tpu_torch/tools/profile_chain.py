@@ -1,4 +1,4 @@
-"""Where the main path's time goes on the GPU.
+"""Where the time goes on the GPU: the main path and the three tiers.
 
     python -m vae_hmc_tpu_torch.tools.profile_chain
 
@@ -14,7 +14,12 @@ the same breakdown, the medium tier's scripts 11, 13 and 16 on that run's
 tensors (``pipelines.medium.scripts_11_13_16``, as ``chip_smoke.py``
 phase 4); and the whole medium tier, ``run_medium_pipeline`` at the same
 size (as ``chip_smoke.py`` phase 5), by the stages of its
-``timing_medium.json``, with its peak device memory.  Needs a GPU.
+``timing_medium.json``, with its peak device memory.  Then the easy and
+hard tiers, ``run_easy_pipeline`` and ``run_hard_pipeline`` at 2,924
+tracks with their full configs (as ``chip_smoke.py`` phases 6 and 7: the
+first run of each tier in the process, after the parts before it), with
+the same breakdown by the stages of ``timing_easy.json`` and
+``timing_hard.json``.  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig, Workspace
 from vae_hmc_tpu_torch.core.device import resolve_device
 from vae_hmc_tpu_torch.ops.kernels import build
-from vae_hmc_tpu_torch.pipelines import medium
+from vae_hmc_tpu_torch.pipelines import easy, hard, medium
 from vae_hmc_tpu_torch.pipelines.bench_chain import run_core
 from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
 
@@ -59,6 +64,18 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip())
+    _core_and_scripts_11_13_16(dev)
+    _profile_tier(dev, "medium", lambda ws: medium.run_medium_pipeline(
+        SyntheticSource.make(N_TRACKS, seed=42), ws,
+        vae_cfg=dataclasses.replace(ConvMMVaeConfig(), epochs=EPOCHS),
+        device_batch=128, device=dev))
+    _profile_tier(dev, "easy", lambda ws: easy.run_easy_pipeline(
+        SyntheticSource.make(N_TRACKS, seed=42), ws, device=dev))
+    _profile_tier(dev, "hard", lambda ws: hard.run_hard_pipeline(
+        SyntheticSource.make(N_TRACKS, seed=42), ws, device=dev))
+
+
+def _core_and_scripts_11_13_16(dev) -> None:
     cold = run_core(n_tracks=N_TRACKS, epochs=EPOCHS, device=dev)
     print("warm-up (cold) run:", json.dumps({k: cold[k] for k in STAGE_KEYS}))
     with profile(activities=[ProfilerActivity.CPU,
@@ -75,19 +92,21 @@ def main() -> None:
                                       device=dev)
     _report(prof, out["seconds"], build.launch_counts(),
             out["seconds"]["seconds_total"], TOP)
-    del cold, res, t, out             # the pipeline's peak memory is its own
+
+
+def _profile_tier(dev, name: str, run) -> None:
+    """run(workspace) -> the tier runner's result, under the profiler, into
+    a temporary workspace; its peak device memory and the breakdown."""
+    torch.cuda.empty_cache()      # the earlier parts' tensors are released
     with tempfile.TemporaryDirectory() as root, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         build.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
-        pipe = medium.run_medium_pipeline(
-            SyntheticSource.make(N_TRACKS, seed=42), Workspace(root),
-            vae_cfg=dataclasses.replace(ConvMMVaeConfig(), epochs=EPOCHS),
-            device_batch=128, device=dev)
-    print(f"run_medium_pipeline: peak device memory "
+        out = run(Workspace(root))
+    print(f"run_{name}_pipeline: peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
-    _report(prof, pipe["timing"]["seconds"], build.launch_counts(),
-            pipe["timing"]["total_seconds"], TOP)
+    _report(prof, out["timing"]["seconds"], build.launch_counts(),
+            out["timing"]["total_seconds"], TOP)
 
 
 def _report(prof, seconds, launches, wall_s: float, top: int) -> None:
