@@ -46,9 +46,25 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      NMI/ARI/purity in range; then scripts 19 -> 20 -> 22 once more with
      HARD_CVAE on the port's synthetic-MiniLM embeddings of the 2,924 texts:
      the reference's fused width, 464.
+  8. the real-data entry point: a WAV corpus of 390 manifest rows over the
+     6 genres in a temporary directory (330 PCM16 mono at 22,050 Hz, 40
+     PCM16 stereo at 44,100 Hz, 10 IEEE float32, clips of 0.5, 8 and 19 s,
+     3 corrupt files and 4 missing paths, ~90% with lyrics files, half the
+     paths with Windows separators); ``run-easy``, ``run-hard`` and
+     ``run-medium`` through ``vae_hmc_tpu_torch.cli.main`` with the
+     reference's defaults, one ``python -m vae_hmc_tpu_torch.cli run-hard``
+     in a subprocess and one ``prepare-hard --synthetic-audio``, each of
+     those two in a root of its own.  It checks that the native decoder
+     loaded, the report rows (the 7 error rows, the hard tier's one
+     too-short clip), 383 rows (382 in the hard tier), finite metrics,
+     7 kernel 1 launches a tier, and that the easy tier's MFCC stats of the
+     PCM16 rows equal the same quantized waveforms fed to
+     ``ops.mfcc.mfcc_stats_batch`` directly; it logs each tier's decode
+     seconds, stage seconds and peak device memory.
 Each tier runs with the launch counters reset just before and read just
 after, and fails unless its kernels were launched.  Phase 2 also holds
-kernel 1 in the MFCC mode and kernel 2 at (2924, 16) and (2924, 80) to
+kernel 1 in the MFCC mode and on silent and zero-tailed rows at phase 8's
+batches, and kernel 2 at (2924, 16), (2924, 80) and phase 8's shapes, to
 their plain versions.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -74,6 +90,15 @@ MAIN_EPOCHS = 1
 MEL_FLAT = 128 * 646            # width of the mel-flat representation
 DEVICE_BATCH = 128               # log-mel batch of the main path
 MFCC_BATCH = 64                  # MFCC batch of the easy and hard tiers
+
+# phase 8's WAV corpus: 390 manifest rows over the 6 genres; 383 decode
+# (7 rows fail: 3 corrupt files, 4 missing paths), 382 in the hard tier
+# (its 0.5 s clip is too short)
+CORPUS_SEED = 42
+CORPUS_KINDS = (("pcm16", 30.0, 330), ("stereo44k", 30.0, 40),
+                ("float32", 30.0, 10), ("short", 0.5, 1), ("short", 8.0, 1),
+                ("short", 19.0, 1), ("corrupt", 0.0, 3), ("missing", 0.0, 4))
+FILE_BATCH = 64                  # the CLI's --device-batch default
 
 
 def log(msg: str) -> None:
@@ -200,6 +225,32 @@ def _spectrogram(n_tracks: int, cfg, dev):
     y, _, _ = src.waveforms(list(range(n_tracks)), cfg.duration_s, dev)
     return power_spectrogram(y, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
                              power=getattr(cfg, "power", 2.0))
+
+
+def corpus_plan() -> list:
+    """Phase 8's corpus, row by row in manifest order (a seeded shuffle, so
+    the odd rows fall in several batches): track_id, genre, kind, seconds,
+    the lyrics text (about 90% of rows) and paths relative to --root, half
+    written with Windows separators."""
+    import numpy as np
+    from vae_hmc_tpu_torch.pipelines import synthetic
+    rng = np.random.default_rng(CORPUS_SEED)
+    kinds = [(k, sec) for k, sec, n in CORPUS_KINDS for _ in range(n)]
+    order = rng.permutation(len(kinds))
+    has_text = rng.random(len(kinds)) < 0.9
+    rows = []
+    for pos, i in enumerate(order):
+        kind, sec = kinds[i]
+        tid = 300000 + 7 * pos
+        genre = synthetic.GENRES[pos % len(synthetic.GENRES)]
+        sep = "\\" if pos % 2 else "/"
+        rows.append({
+            "track_id": tid, "genre": genre, "kind": kind, "seconds": sec,
+            "audio_path": f"audio{sep}{tid}.wav",
+            "text_path": f"text{sep}{tid}.txt" if has_text[pos] else "",
+            "text": (synthetic._lyrics_for(genre, tid, CORPUS_SEED, 0.2)
+                     if has_text[pos] else None)})
+    return rows
 
 
 def script11_rows() -> int:
@@ -377,7 +428,86 @@ def phase_logmel_mfcc(dev) -> dict:
     return {"mfcc_max_abs_err": max_err, "mfcc_rows": rows}
 
 
-def phase_distance(dev, lyrics_rows: int) -> dict:
+def phase_logmel_file_rows(dev) -> dict:
+    """Kernel 1 on what a file-backed batch holds (phase 8): an all-zero row
+    (a row that failed to decode; its mel slice is constant, max = amin,
+    centred variance exactly 0, and standardize divides by 0 + eps), a row
+    zero past 0.5 s and one zero past 8 s (short clips' padded tails), at
+    phase 8's batches B = 64 and 6 and its three frame counts: T = 646
+    standardized (medium), 1,292 and 862 in the MFCC mode (easy, hard).
+    The tolerances are phase 2's: 1e-4 standardized, 1e-3 dB raw."""
+    import torch
+    from vae_hmc_tpu_torch.core.config import MFCC_EASY, MFCC_HARD, MelConfig
+    from vae_hmc_tpu_torch.ops import mel as mel_ops
+    from vae_hmc_tpu_torch.ops.kernels.logmel import (
+        mel_db_standardize, mel_db_standardize_plain)
+    from vae_hmc_tpu_torch.ops.stft import power_spectrogram
+    from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
+
+    log("kernel 1 on silent and zero-tailed rows at phase 8's batches")
+    last = len(corpus_plan()) % FILE_BATCH
+    src = SyntheticSource.make(FILE_BATCH, seed=9)
+    max_err, rows = 0.0, []
+    for tier, cfg, kw, atol in (
+            ("medium", MelConfig(), dict(top_db=mel_ops.effective_top_db(
+                MelConfig()), standardize=True), 1e-4),
+            ("easy", MFCC_EASY, dict(ref_max=False, top_db=80.0,
+                                     standardize=False), 1e-3),
+            ("hard", MFCC_HARD, dict(ref_max=False, top_db=80.0,
+                                     standardize=False), 1e-3)):
+        fb = mel_ops.mel_filterbank_tensor(cfg, dev)
+        bands = mel_ops.filterbank_bands_tensor(cfg, dev)
+        weights = mel_ops.filterbank_weights_tensor(cfg, dev)
+        for b in (FILE_BATCH, last):
+            y, _, _ = src.waveforms(list(range(b)), cfg.duration_s, dev)
+            y[0] = 0.0
+            y[1, int(0.5 * cfg.sample_rate):] = 0.0
+            y[2, int(8.0 * cfg.sample_rate):] = 0.0
+            spec = power_spectrogram(y, n_fft=cfg.n_fft,
+                                     hop_length=cfg.hop_length)
+            got = mel_db_standardize(spec, fb, bands=bands, weights=weights,
+                                     **kw)
+            want = mel_db_standardize_plain(spec, fb, **kw)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                fail(f"{tier} {tuple(spec.shape)}: non-finite features from "
+                     "silent or zero-tailed rows")
+            max_err = max(max_err, check_close(
+                f"{tier} silent/zero-tailed rows {tuple(spec.shape)}", got,
+                want, atol))
+            if b == last:
+                ms = time_ms(lambda: mel_db_standardize(
+                    spec, fb, bands=bands, weights=weights, **kw))
+                plain_ms = time_ms(lambda: mel_db_standardize_plain(
+                    spec, fb, **kw))
+                m, f, t = fb.shape[0], spec.shape[1], spec.shape[2]
+                nnz = weights.numel()
+                bound_ms, bound_by = bound(
+                    4.0 * (b * f * t + 2 * m + nnz + b * m * t),
+                    2.0 * nnz * b * t)
+                log(f"  timing at ({b}, {f}, {t}): kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                    f"{bound_by}")
+                rows.append({"tier": tier, "shape": [b, f, t, m], "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by})
+            del y, spec, got, want
+    torch.cuda.empty_cache()
+    return {"file_rows_max_abs_err": max_err, "file_rows": rows}
+
+
+def file_dist_shapes(lyrics_rows: int) -> list:
+    """Kernel 2's inputs in phase 8: (rows, width) of every representation
+    it sees (easy latents and PCA(16) of 383 tracks, hard latents, PCA(32)
+    and MFCC stats of 382, medium latents, mel-flat and lyrics), each also
+    against 8 centroids."""
+    ok = len(corpus_plan()) - sum(n for k, _, n in CORPUS_KINDS
+                                  if k in ("corrupt", "missing"))
+    return [(ok, 16), (ok - 1, 16), (ok - 1, 32), (ok - 1, 80), (ok, 80),
+            (ok, 32), (ok, MEL_FLAT), (lyrics_rows, 384)]
+
+
+def phase_distance(dev, lyrics_rows: int, file_shapes: list) -> dict:
     import torch
     from vae_hmc_tpu_torch.ops.kernels import build
     from vae_hmc_tpu_torch.ops.kernels.distance import (
@@ -408,6 +538,8 @@ def phase_distance(dev, lyrics_rows: int) -> dict:
              ((256, MEL_FLAT), None), ((37, 17), None),
              # phases 6-7: latents and PCA(16), MFCC stats (80)
              ((MAIN_TRACKS, 16), None), ((MAIN_TRACKS, 80), None)]
+    # phase 8: the file corpus's representations, self and x 8 centroids
+    cases += [(shape, m) for shape in file_shapes for m in (None, 8)]
     for (n, d), m in cases:
         x = centred(n, d)
         y = None if m is None else centred(m, d)
@@ -1044,6 +1176,311 @@ def phase_hard_pipeline(dev) -> dict:
             "cvae_peak_bytes": cvae_peak}
 
 
+def write_corpus(root: Path, rows: list) -> int:
+    """Phase 8's WAV files (PCM16 or IEEE float32 RIFF/WAVE; waveforms from
+    the genre recipes of ``pipelines.synthetic.waveform``), lyrics files and
+    ``data/manifest.csv`` under `root`; -> bytes written."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from vae_hmc_tpu_torch.core.manifest import normalize_path, write_manifest
+    from vae_hmc_tpu_torch.pipelines import synthetic
+
+    def wav_bytes(y, sr, float32):
+        data = (y.astype("<f4") if float32 else
+                (np.clip(y, -1, 1) * 32767).astype("<i2")).tobytes()
+        ch = 1 if y.ndim == 1 else y.shape[1]
+        bits = 32 if float32 else 16
+        fmt = ((3 if float32 else 1).to_bytes(2, "little")
+               + ch.to_bytes(2, "little") + sr.to_bytes(4, "little")
+               + (sr * ch * bits // 8).to_bytes(4, "little")
+               + (ch * bits // 8).to_bytes(2, "little")
+               + bits.to_bytes(2, "little"))
+        body = (b"WAVE" + b"fmt " + (16).to_bytes(4, "little") + fmt
+                + b"data" + len(data).to_bytes(4, "little") + data)
+        return b"RIFF" + len(body).to_bytes(4, "little") + body
+
+    def write(r) -> int:
+        path = root / normalize_path(r["audio_path"])
+        kind, tid, genre = r["kind"], r["track_id"], r["genre"]
+        if kind == "missing":
+            return 0
+        if kind == "corrupt":
+            blob = b"not a RIFF file " * 64
+        elif kind == "stereo44k":
+            y = synthetic.waveform(tid, genre, r["seconds"], CORPUS_SEED,
+                                   44100)
+            blob = wav_bytes(np.stack([y, 0.7 * np.roll(y, 441)], axis=1),
+                             44100, False)
+        else:
+            y = synthetic.waveform(tid, genre, r["seconds"], CORPUS_SEED)
+            blob = wav_bytes(y, 22050, kind == "float32")
+        path.write_bytes(blob)
+        return len(blob)
+
+    for d in ("audio", "text", "data"):
+        (root / d).mkdir(parents=True)
+    for r in rows:
+        if r["text"] is not None:
+            (root / normalize_path(r["text_path"])).write_text(r["text"])
+    with ThreadPoolExecutor(8) as pool:
+        total = sum(pool.map(write, rows))
+    write_manifest(root / "data" / "manifest.csv", [{
+        "track_id": r["track_id"], "title": f"track {r['track_id']}",
+        "artist": f"artist {r['track_id'] % 31}", "genre": r["genre"],
+        "audio_path": r["audio_path"], "lyrics_path": r["text_path"],
+        "lyrics_source": "genius" if r["text"] else "",
+        "text_path_combined": r["text_path"],
+        "text_source_combined": "genius" if r["text"] else "",
+        "text_exists": str(r["text"] is not None)} for r in rows])
+    return total
+
+
+def _own_root(corpus: Path, root: Path) -> Path:
+    """A workspace of its own over the corpus: audio/ and text/ linked, the
+    manifest copied (so no run reuses another's feature cache)."""
+    (root / "data").mkdir(parents=True)
+    for d in ("audio", "text"):
+        (root / d).symlink_to(corpus / d)
+    (root / "data" / "manifest.csv").write_bytes(
+        (corpus / "data" / "manifest.csv").read_bytes())
+    return root
+
+
+def phase_file_corpus(dev, lyrics_rows: int, file_shapes: list) -> dict:
+    """Phase 8, the real-data entry point: write the WAV corpus; run
+    ``run-easy``, ``run-hard`` and ``run-medium`` through
+    ``vae_hmc_tpu_torch.cli.main`` on its manifest with the reference's
+    defaults (40, 50 and 25 epochs), then ``python -m vae_hmc_tpu_torch.cli
+    run-hard`` in a subprocess and ``prepare-hard --synthetic-audio`` on the
+    same manifest, each of those two in a root of its own; check the report
+    rows, row counts, metrics and launches; and hold the easy tier's MFCC
+    stats of the PCM16 rows to the same quantized waveforms fed straight to
+    ``ops.mfcc.mfcc_stats_batch`` in batches of the same composition."""
+    import csv
+    import tempfile
+    import numpy as np
+    import torch
+    from vae_hmc_tpu_torch import cli
+    from vae_hmc_tpu_torch.core.config import MFCC_EASY
+    from vae_hmc_tpu_torch.io import native
+    from vae_hmc_tpu_torch.ops.mfcc import mfcc_stats_batch
+    from vae_hmc_tpu_torch.pipelines import features, sources, synthetic
+
+    rows = corpus_plan()
+    n_rows = len(rows)
+    bad = {r["track_id"] for r in rows if r["kind"] in ("corrupt", "missing")}
+    too_short = {r["track_id"] for r in rows
+                 if r["kind"] != "missing" and 0 < r["seconds"] < 1.0}
+    ok = n_rows - len(bad)
+    batches = -(-n_rows // FILE_BATCH)
+    lib = native.get_lib()
+    log(f"phase 8: native audio library loaded from {Path(lib._name).name}")
+
+    # decode seconds (the prefetch thread's host_waveforms calls) and the
+    # build reports of every feature loop, read around the CLI calls
+    decode, reports = [], []
+    real_host = sources.FileSource.host_waveforms
+    real_mfcc, real_mel = features.build_mfcc_stats, features.build_logmel
+
+    def timed_host(self, idx, duration_s):
+        t0 = time.perf_counter()
+        out = real_host(self, idx, duration_s)
+        decode.append(time.perf_counter() - t0)
+        return out
+
+    def reporting(fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            reports.append(out[2].rows)
+            return out
+        return wrapped
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = Path(tmp) / "corpus"
+        t0 = time.perf_counter()
+        nbytes = write_corpus(corpus, rows)
+        log(f"  corpus: {n_rows} manifest rows, {nbytes / 1e9:.3f} GB of WAV "
+            f"written in {time.perf_counter() - t0:.2f} s; {ok} decode, "
+            f"{lyrics_rows} with lyrics")
+        argv = ["--manifest", "data/manifest.csv", "--root", str(corpus)]
+        sources.FileSource.host_waveforms = timed_host
+        features.build_mfcc_stats = reporting(real_mfcc)
+        features.build_logmel = reporting(real_mel)
+        try:
+            for tier in ("easy", "hard", "medium"):
+                decode.clear()
+                reports.clear()
+                rc, launches, wall, peak = _run_tier(
+                    dev, f"cli run-{tier}", lambda: cli.main(
+                        [f"run-{tier}", *argv]))
+                timing = json.loads((corpus / "results" /
+                                     f"timing_{tier}.json").read_text())
+                _log_stages(timing, f"timing_{tier}.json")
+                log(f"  run-{tier}: decode {sum(decode):.3f} s on the "
+                    f"prefetch thread over {len(decode)} batches")
+                if rc != 0:
+                    fail(f"cli run-{tier} returned {rc}")
+                if len(reports) != 1:
+                    fail(f"run-{tier}: {len(reports)} feature loops")
+                _check_report(reports[0], bad, too_short if tier == "hard"
+                              else set(), f"run-{tier}")
+                if launches["mel_db_standardize"] != batches or \
+                        launches["pairwise_dists"] <= 0:
+                    fail(f"run-{tier}: launches {launches}, want "
+                         f"{batches} of kernel 1 and some of kernel 2")
+                out[tier] = {"seconds": timing["seconds"], "launches":
+                             launches, "peak_bytes": peak, "wall": wall,
+                             "decode_seconds": sum(decode)}
+        finally:
+            sources.FileSource.host_waveforms = real_host
+            features.build_mfcc_stats = real_mfcc
+            features.build_logmel = real_mel
+
+        _check_file_outputs(corpus, ok, lyrics_rows, file_shapes)
+
+        # the easy tier's MFCC stats of the PCM16 rows against the same
+        # quantized waveforms in batches of the same composition (the other
+        # rows zeros: kernel 1 and the STFT treat each row alone)
+        blob = np.load(corpus / "results/vae_basic/mfcc_features_cache.npy",
+                       allow_pickle=True).item()
+        pos = {int(t): i for i, t in enumerate(blob["track_ids"])}
+        worst, n_cmp = 0.0, 0
+        for start in range(0, n_rows, FILE_BATCH):
+            chunk = rows[start:start + FILE_BATCH]
+            y = np.zeros((len(chunk), MFCC_EASY.n_samples), np.float32)
+            pcm = [i for i, r in enumerate(chunk) if r["kind"] == "pcm16"]
+            for i in pcm:
+                w = synthetic.waveform(chunk[i]["track_id"], chunk[i]["genre"],
+                                       30.0, CORPUS_SEED)
+                y[i] = (np.clip(w, -1, 1) * 32767).astype(np.int16) / \
+                    np.float32(32768.0)
+            want = mfcc_stats_batch(torch.from_numpy(y).to(dev),
+                                    MFCC_EASY).cpu().numpy()
+            for i in pcm:
+                got = blob["X"][pos[chunk[i]["track_id"]]]
+                err = np.abs(got - want[i])
+                if not np.all(err <= 1e-3 + 1e-5 * np.abs(want[i])):
+                    fail(f"track {chunk[i]['track_id']}: file-path MFCC stats "
+                         f"differ from the in-memory path by {err.max():.3e}")
+                worst = max(worst, float(err.max()))
+                n_cmp += 1
+        log(f"  MFCC stats of the {n_cmp} PCM16 rows, FileSource path vs "
+            f"in-memory: max abs diff {worst:.3e} (atol 1e-3, rtol 1e-5)")
+        if n_cmp != sum(r["kind"] == "pcm16" for r in rows):
+            fail(f"compared {n_cmp} PCM16 rows")
+        out["pcm16_max_abs_diff"] = worst
+
+        # one run-hard in a subprocess, as a user types it
+        sub_root = _own_root(corpus, Path(tmp) / "sub")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "vae_hmc_tpu_torch.cli", "run-hard",
+             "--manifest", "data/manifest.csv", "--root", str(sub_root)],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        sub_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"python -m vae_hmc_tpu_torch.cli run-hard exited "
+                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        metrics = json.loads(proc.stdout.strip().splitlines()[-1])
+        ids = np.load(sub_root / "data/hard/track_ids.npy")
+        log(f"  subprocess run-hard: {sub_s:.2f} s, {len(ids)} tracks, "
+            f"script 20 {json.dumps(metrics)}")
+        if len(ids) != ok - len(too_short) or not all(
+                math.isfinite(float(v)) for v in metrics.values()
+                if isinstance(v, (int, float))):
+            fail(f"subprocess run-hard: {len(ids)} tracks, metrics {metrics}")
+        out["subprocess_seconds"] = sub_s
+
+        # prepare-hard --synthetic-audio: the manifest's rows, synthesized
+        syn_root = _own_root(corpus, Path(tmp) / "synthetic_audio")
+        rc, launches, wall, _ = _run_tier(
+            dev, "cli prepare-hard --synthetic-audio", lambda: cli.main([
+                "prepare-hard", "--synthetic-audio", "--manifest",
+                "data/manifest.csv", "--root", str(syn_root)]))
+        ids = np.load(syn_root / "data/hard/track_ids.npy")
+        want_ids = [r["track_id"] for r in rows]
+        if rc != 0 or list(ids) != want_ids:
+            fail(f"prepare-hard --synthetic-audio: rc {rc}, {len(ids)} ids "
+                 "(want every manifest row in order)")
+        if launches["mel_db_standardize"] != batches:
+            fail(f"prepare-hard --synthetic-audio: launches {launches}")
+        with open(syn_root / "data/hard/hard_metadata.csv", newline="") as f:
+            genres = [r["genre"] for r in csv.DictReader(f)]
+        if genres != [r["genre"] for r in rows]:
+            fail("prepare-hard --synthetic-audio: genres differ from the "
+                 "manifest's")
+        out["synthetic_audio"] = {"launches": launches, "wall": wall}
+    return out
+
+
+def _check_report(report_rows, bad: set, too_short: set, what: str) -> None:
+    """The build report lists exactly the rows that failed to decode as
+    errors (and, in the hard tier, the too-short clip as skipped)."""
+    errors = {r[0] for r in report_rows if r[2] == "error"}
+    skipped = {r[0] for r in report_rows if r[2] == "skipped"}
+    log(f"  {what}: report {len(report_rows)} rows, {len(errors)} errors, "
+        f"{len(skipped)} skipped; e.g. "
+        + "; ".join(sorted({r[3].split(':')[0] for r in report_rows
+                            if r[2] == 'error'})))
+    if errors != bad or skipped != too_short:
+        fail(f"{what}: error rows {sorted(errors)} (want {sorted(bad)}), "
+             f"skipped {sorted(skipped)} (want {sorted(too_short)})")
+
+
+def _check_file_outputs(corpus: Path, ok: int, lyrics_rows: int,
+                        file_shapes: list) -> None:
+    """Row counts, finite metrics, and representations of shapes phase 2
+    checked kernel 2 at."""
+    import csv
+    import numpy as np
+    d, res = corpus / "data", corpus / "results"
+    reps = {
+        "easy latents": np.load(res / "vae_basic/latent_mu.npy"),
+        "hard latents": np.load(d / "hard/latents_mu.npy"),
+        "hard MFCC stats": np.load(d / "hard/audio_mfcc_stats.npy"),
+        "medium latents": np.load(d / "vae_mm_latents_mu.npy"),
+        "medium lyrics": np.load(d / "lyrics_embeddings.npy"),
+        "medium mel-flat": np.load(d / "audio_cnn_mel_X.npy", mmap_mode="r"),
+    }
+    want = {"easy latents": (ok, 16), "hard latents": (ok - 1, 16),
+            "hard MFCC stats": (ok - 1, 80), "medium latents": (ok, 32),
+            "medium lyrics": (lyrics_rows, 384),
+            "medium mel-flat": (ok, MEL_FLAT)}
+    for name, x in reps.items():
+        shape = (x.shape[0], int(np.prod(x.shape[1:])))
+        if shape != want[name] or shape not in file_shapes:
+            fail(f"phase 8 {name}: shape {shape}, want {want[name]}, one "
+                 "phase 2 checked")
+        if name != "medium mel-flat" and not np.isfinite(x).all():
+            fail(f"phase 8 {name}: not finite")
+    log("  representations: " + ", ".join(
+        f"{k} {tuple(v.shape)}" for k, v in reps.items()))
+    del reps
+    metrics = json.loads((res / "hard/hard_metrics_vae_latents.json")
+                         .read_text())
+    with open(res / "compare_metrics/metrics.csv", newline="") as f:
+        easy_rows = list(csv.DictReader(f))
+    with open(res / "medium_clustering_metrics_all.csv", newline="") as f:
+        suite = list(csv.DictReader(f))
+    with open(res / "hard/baseline_comparison.csv", newline="") as f:
+        base = list(csv.DictReader(f))
+    values = [metrics[k] for k in ("silhouette", "nmi", "ari", "purity")]
+    values += [float(r[k]) for r in easy_rows
+               for k in ("silhouette", "calinski_harabasz")]
+    values += [float(r[k]) for r in suite if r["algo"] != "dbscan"
+               for k in ("silhouette", "davies_bouldin", "ari")]
+    values += [float(r[k]) for r in base
+               for k in ("silhouette", "nmi", "ari", "purity")]
+    if len(easy_rows) != 3 or len(suite) != 21 or len(base) != 4 or \
+            not all(math.isfinite(v) for v in values):
+        fail(f"phase 8 metrics: {len(easy_rows)} easy rows, {len(suite)} "
+             f"suite rows, {len(base)} baselines, or a non-finite value")
+    log(f"  metrics: hard {json.dumps(metrics)}; easy VAE silhouette "
+        f"{float(easy_rows[0]['silhouette']):.5f}; medium kmeans6 on the "
+        f"latents silhouette {float(suite[0]['silhouette']):.5f}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1055,8 +1492,11 @@ def main() -> None:
     t0 = time.perf_counter()
     smi = phase_identify_and_build()
     lyrics_rows = script11_rows()
-    kernels = [{**phase_logmel(dev), **phase_logmel_mfcc(dev)},
-               phase_distance(dev, lyrics_rows)]
+    file_lyrics = sum(r["text"] is not None for r in corpus_plan())
+    file_shapes = file_dist_shapes(file_lyrics)
+    kernels = [{**phase_logmel(dev), **phase_logmel_mfcc(dev),
+                **phase_logmel_file_rows(dev)},
+               phase_distance(dev, lyrics_rows, file_shapes)]
     launches, tensors, source = phase_main_path(dev)
     sweep = phase_medium_sweep(dev, tensors, source, lyrics_rows)
     del tensors, source
@@ -1066,6 +1506,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     easy_tier = phase_easy_pipeline(dev)
     hard_tier = phase_hard_pipeline(dev)
+    torch.cuda.empty_cache()
+    files = phase_file_corpus(dev, file_lyrics, file_shapes)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sweep_launches"] = sweep["launches"][k["name"]]
@@ -1073,6 +1515,11 @@ def main() -> None:
         k["easy_launches"] = easy_tier["launches"][k["name"]]
         k["hard_launches"] = hard_tier["launches"][k["name"]]
         k["cvae_launches"] = hard_tier["cvae_launches"][k["name"]]
+        k["file_launches"] = {
+            **{tier: files[tier]["launches"][k["name"]]
+               for tier in ("easy", "hard", "medium")},
+            "synthetic_audio": files["synthetic_audio"]["launches"][
+                k["name"]]}
     log(f"done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

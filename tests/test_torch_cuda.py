@@ -416,3 +416,71 @@ def test_easy_and_hard_pipelines_small_on_gpu(gpu, tmp_path):
                 "results/hard/plots/recon_examples" + ext,
                 "results/timing_hard.json"):
         assert (tmp_path / "h" / rel).exists(), rel
+
+
+def _silent_and_tailed(n: int, n_samples: int, sr: int, seed: int):
+    """(n, n_samples) noise with row 0 all zeros (a row that failed to
+    decode), row 1 zero past 0.5 s and row 2 zero past 8 s (short clips'
+    padded tails)."""
+    rng = np.random.default_rng(seed)
+    y = rng.normal(0, 0.1, (n, n_samples)).astype(np.float32)
+    y[0] = 0.0
+    y[1, int(0.5 * sr):] = 0.0
+    y[2, int(8.0 * sr):] = 0.0
+    return y
+
+
+@pytest.mark.parametrize("b", [6, 64])
+@pytest.mark.parametrize("mode,duration_s", [("standardized", 15.0),
+                                             ("mfcc", 30.0), ("mfcc", 20.0)])
+def test_logmel_kernel_on_silent_and_zero_tailed_rows(gpu, b, mode,
+                                                      duration_s):
+    """Kernel 1 on the inputs a file-backed batch holds: an all-zero row
+    (its mel slice is constant: max = amin, centred variance exactly 0, and
+    standardize divides by 0 + eps) and zero tails, against the plain
+    version: the standardized mode at T = 646, the MFCC mode at T = 1,292
+    and 862; atol 1e-4 standardized, 1e-3 dB raw."""
+    from vae_hmc_tpu_torch.core.config import MfccConfig
+    cfg = (MelConfig(duration_s=duration_s) if mode == "standardized"
+           else MfccConfig(duration_s=duration_s))
+    y = _silent_and_tailed(b, cfg.n_samples, cfg.sample_rate, seed=b)
+    spec = tstft.power_spectrogram(torch.from_numpy(y).to(gpu),
+                                   n_fft=cfg.n_fft, hop_length=cfg.hop_length)
+    fb = tmel.mel_filterbank_tensor(cfg, gpu)
+    kw = (dict(top_db=tmel.effective_top_db(cfg), standardize=True)
+          if mode == "standardized"
+          else dict(ref_max=False, top_db=80.0, standardize=False))
+    got = mel_db_standardize(spec, fb, bands=tmel.filterbank_bands_tensor(
+        cfg, gpu), weights=tmel.filterbank_weights_tensor(cfg, gpu), **kw)
+    want = mel_db_standardize_plain(spec, fb, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 if mode == "standardized" else 1e-3)
+    if mode == "standardized":          # the silent row standardizes to 0
+        assert float(got[0].abs().max()) == 0.0
+
+
+def test_file_source_mfcc_stats_on_gpu_match_cpu(gpu, tmp_path):
+    """FileSource -> build_mfcc_stats on the card (prefetch thread, pinned
+    copies, kernel 1) against the port on the CPU, on the 13-row WAV corpus
+    with a short clip: the same ids and report rows; stats atol 1e-3."""
+    from tests.torch_audio_data import corpus_rows
+    from vae_hmc_tpu_torch.core.config import MfccConfig
+    from vae_hmc_tpu_torch.core.manifest import read_manifest, write_manifest
+    from vae_hmc_tpu_torch.pipelines.features import build_mfcc_stats
+    from vae_hmc_tpu_torch.pipelines.sources import FileSource
+    write_manifest(tmp_path / "m.csv",
+                   corpus_rows(tmp_path, seconds=1.5, short={3: 0.6}))
+    source = FileSource.from_manifest(read_manifest(tmp_path / "m.csv"),
+                                      root=tmp_path)
+    for cfg in (MfccConfig(duration_s=1.0),
+                MfccConfig(duration_s=1.0, min_duration_s=0.5)):
+        before = build.launch_counts()["mel_db_standardize"]
+        got, ids, rep = build_mfcc_stats(source, cfg, device_batch=5,
+                                         device=gpu)
+        assert build.launch_counts()["mel_db_standardize"] == before + 3
+        want, wids, wrep = build_mfcc_stats(source, cfg, device_batch=5,
+                                            device="cpu")
+        np.testing.assert_array_equal(ids, wids)
+        assert rep.rows == wrep.rows and len(ids) == 12
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)

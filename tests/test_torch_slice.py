@@ -211,7 +211,9 @@ def test_port_imports_no_jax():
     assert "vae_hmc_tpu_torch.cluster.sweep" in modules
     for name in ("ops.pca", "ops.subspace", "viz.tsne", "viz.umap",
                  "viz.projections", "viz.plots", "core.goldens",
-                 "core.profiling", "pipelines.medium"):
+                 "core.profiling", "pipelines.medium", "cli", "io.audio",
+                 "io.native", "io.staging", "core.manifest",
+                 "pipelines.acquisition", "pipelines.parity"):
         assert f"vae_hmc_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -10,50 +10,24 @@ during the call, so a linkage on a worker thread overlaps the caller.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
 from pathlib import Path
-from typing import Optional
 
 import numpy as np
 
-from vae_hmc_tpu_torch.ops.kernels.build import BUILD_DIR
+from vae_hmc_tpu_torch.ops.kernels.build import gxx_library
 
 _SRC = Path(__file__).parent / "ward.cpp"
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-_lib: Optional[ctypes.CDLL] = None
-_lock = threading.Lock()         # sweeps build from several threads at once
 
 
-def _lib_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libward-{digest}.so"
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.ward_nn_chain.restype = ctypes.c_int
+    lib.ward_nn_chain.argtypes = [
+        ctypes.POINTER(ctypes.c_double), ctypes.c_long,
+        ctypes.POINTER(ctypes.c_double)]
 
 
 def _get_lib() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            path = _lib_path()
-            if not path.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = path.with_suffix(f".{os.getpid()}.tmp")
-                proc = subprocess.run(
-                    ["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp)],
-                    capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"ward build failed:\n{proc.stderr}")
-                os.replace(tmp, path)
-            lib = ctypes.CDLL(str(path))
-            lib.ward_nn_chain.restype = ctypes.c_int
-            lib.ward_nn_chain.argtypes = [
-                ctypes.POINTER(ctypes.c_double), ctypes.c_long,
-                ctypes.POINTER(ctypes.c_double)]
-            _lib = lib
-        return _lib
+    return gxx_library(_SRC, "ward", _bind)
 
 
 def ward_nn_chain_native(d2: np.ndarray) -> np.ndarray:

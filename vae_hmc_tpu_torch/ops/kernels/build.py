@@ -1,10 +1,15 @@
-"""Build and load the hand-written CUDA kernels; count their launches.
+"""Build and load the hand-written CUDA kernels; count their launches;
+build the port's host C++ libraries.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ctypes (no PyTorch headers, so a
 build takes seconds).  Libraries are named by a hash of their source, so an
 edited source is rebuilt and a stale library is never loaded.  ``build()``
 starts one ``nvcc`` per source, all at once.
+
+``gxx_library`` compiles a host C++ source (the ward NN-chain, the audio
+decoder) with ``g++`` the same way: hash-named under ``BUILD_DIR``, never
+into the package, raising with g++'s output when the build fails.
 
 Nothing here runs at import: the CPU tests import every module, and this
 package's CPU path never needs ``nvcc``.
@@ -16,9 +21,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -112,3 +118,39 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.kernel_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")
+
+
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+_GXX_LIBS: Dict[Path, ctypes.CDLL] = {}
+_gxx_lock = threading.Lock()     # sweeps and decoders load from threads
+
+
+def gxx_library(src: Path, stem: str,
+                bind: Callable[[ctypes.CDLL], None],
+                link: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of the host C++ source `src`: ``g++ GXX_FLAGS src
+    -o BUILD_DIR/lib<stem>-<hash of source and flags>.so <link>`` at first
+    use (written to a temporary name, then renamed, so processes that
+    build at once never load half a file), then ``bind(lib)`` to declare
+    its argtypes.  A failed build raises with g++'s output, on every call:
+    nothing remembers a failure."""
+    cmd_tail = (*GXX_FLAGS, "|", *link)
+    digest = hashlib.sha256(Path(src).read_bytes()
+                            + " ".join(cmd_tail).encode()).hexdigest()[:16]
+    path = BUILD_DIR / f"lib{stem}-{digest}.so"
+    with _gxx_lock:
+        lib = _GXX_LIBS.get(path)
+        if lib is None:
+            if not path.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.run(
+                    ["g++", *GXX_FLAGS, str(src), "-o", str(tmp), *link],
+                    capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"{stem} build failed:\n{proc.stderr}")
+                os.replace(tmp, path)
+            lib = ctypes.CDLL(str(path))
+            bind(lib)
+            _GXX_LIBS[path] = lib
+        return lib

@@ -1,22 +1,28 @@
 """Feature extraction loops (port of ``vae_hmc_tpu.pipelines.features``
 ``build_mfcc_stats`` and ``build_logmel``).
 
-Per device batch: the source synthesizes (or stages) waveforms on the
-device, kernel 1 (``ops.kernels.logmel``) turns them into standardized
-log-mel images or, in its MFCC mode, the dB mel spectrogram that
-``ops.mfcc`` turns into MFCC stats; per-batch results stay on the device
-until one fetch after the loop.  Rows with decode errors, too-short clips
-(hard preset) or non-finite features are dropped and reported in the
-``BuildReport`` rows contract ``(track_id, audio_path, status, reason)``.
-The JAX package's fused synth -> feature scan programs are not ported: they
-cut TPU dispatches, and the port's source synthesizes each batch on the
-device already.
+Per device batch: kernel 1 (``ops.kernels.logmel``) turns the waveforms into
+standardized log-mel images or, in its MFCC mode, the dB mel spectrogram
+that ``ops.mfcc`` turns into MFCC stats; per-batch results stay on the
+device until one fetch after the loop.  Where the waveforms come from:
+
+  - a file-backed source (one with ``host_waveforms``, i.e. ``FileSource``)
+    decodes each batch on a ``io.staging.prefetch_batches`` thread while the
+    device works on the one before, as the JAX loops do; the host batch is
+    copied through page-locked memory (``io.staging.to_device``);
+  - ``SyntheticSource`` synthesizes each batch on the device.
+
+Rows with decode errors, too-short clips (hard preset) or non-finite
+features are dropped and reported in the ``BuildReport`` rows contract
+``(track_id, audio_path, status, reason)``.  The JAX package's fused
+synth -> feature scan programs are not ported: they cut TPU dispatches, and
+the port's source synthesizes each batch on the device already.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +30,8 @@ import torch
 from vae_hmc_tpu_torch.core.artifacts import save_csv_rows
 from vae_hmc_tpu_torch.core.config import MelConfig, MfccConfig
 from vae_hmc_tpu_torch.core.device import resolve_device
+from vae_hmc_tpu_torch.io.staging import (batched_indices, prefetch_batches,
+                                          to_device)
 from vae_hmc_tpu_torch.ops.kernels.logmel import logmel_standardized
 from vae_hmc_tpu_torch.ops.mfcc import mfcc_stats_batch
 from vae_hmc_tpu_torch.ops.stft import pad_with_reflect_tail
@@ -47,6 +55,29 @@ def _path_str(source, i: int) -> str:
             else f"synthetic://{int(source.track_ids[i])}")
 
 
+def _waveform_batches(source, duration_s: float, device_batch: int,
+                      dev: torch.device
+                      ) -> Iterator[Tuple[Sequence[int], object, np.ndarray,
+                                          List[Optional[str]]]]:
+    """Yield (idx, batch, lengths, errors) per device batch: `batch` is the
+    host numpy batch of a file-backed source, decoded ahead on a prefetch
+    thread (ctypes releases the GIL while the native decoder runs), or the
+    tensor that a synthetic source made on `dev`."""
+    batches = batched_indices(len(source), device_batch)
+    if hasattr(source, "host_waveforms"):
+        for idx, (batch, lengths, errors) in prefetch_batches(
+                lambda ix: source.host_waveforms(ix, duration_s), batches):
+            yield idx, batch, lengths, errors
+    else:
+        for idx in batches:
+            yield (idx, *source.waveforms(idx, duration_s, dev))
+
+
+def _on_device(batch, dev: torch.device) -> torch.Tensor:
+    return (batch if isinstance(batch, torch.Tensor)
+            else to_device(batch, dev))
+
+
 def build_mfcc_stats(source, cfg: MfccConfig, device_batch: int = 64,
                      strict: bool = False, device="cuda"
                      ) -> Tuple[np.ndarray, np.ndarray, BuildReport]:
@@ -60,13 +91,11 @@ def build_mfcc_stats(source, cfg: MfccConfig, device_batch: int = 64,
     its stats are masked to the true frame counts.  The stats of every batch
     stay on the device and cross to the host in one fetch after the loop."""
     dev = resolve_device(device)
-    n = len(source)
     masked = cfg.min_duration_s > 0
     min_len = int(cfg.sample_rate * cfg.min_duration_s)
     f_parts, meta = [], []            # meta: (tid, pstr, err, length)
-    for start in range(0, n, device_batch):
-        idx = list(range(start, min(start + device_batch, n)))
-        batch, lengths, errors = source.waveforms(idx, cfg.duration_s, dev)
+    for idx, batch, lengths, errors in _waveform_batches(
+            source, cfg.duration_s, device_batch, dev):
         if strict:
             for r, e in enumerate(errors):
                 if e is not None:
@@ -75,17 +104,19 @@ def build_mfcc_stats(source, cfg: MfccConfig, device_batch: int = 64,
         if masked and int(np.min(lengths)) < cfg.n_samples:
             # keep true lengths: short clips are NOT padded into the stats
             # (reference 18:88 loads duration<=20 s at true length); the
-            # reflect tail makes boundary frames exact (see ops.stft)
-            host = batch.cpu().numpy()
+            # reflect tail makes boundary frames exact (see ops.stft).  A
+            # file-backed batch is staged from the host batch it came as.
+            host = (batch.cpu().numpy() if isinstance(batch, torch.Tensor)
+                    else batch)
             staged = np.stack([
                 pad_with_reflect_tail(host[r, :max(int(lengths[r]), 2)],
                                       cfg.n_samples, cfg.n_fft)
                 for r in range(len(idx))])
-            f = mfcc_stats_batch(torch.from_numpy(staged).to(dev), cfg,
+            f = mfcc_stats_batch(to_device(staged, dev), cfg,
                                  lengths=torch.as_tensor(lengths, device=dev))
         else:
             # all clips full-length: masked stats == plain stats
-            f = mfcc_stats_batch(batch, cfg)
+            f = mfcc_stats_batch(_on_device(batch, dev), cfg)
         f_parts.append(f)
         meta.extend((int(source.track_ids[i]), _path_str(source, i),
                      errors[r], int(lengths[r])) for r, i in enumerate(idx))
@@ -120,12 +151,10 @@ def build_logmel(source, cfg: MelConfig, device_batch: int = 128,
     per-sample ref=max and the top_db floor, per-sample standardization;
     T = 1 + n_samples // hop."""
     dev = resolve_device(device)
-    n = len(source)
     feats, finite_parts, meta = [], [], []   # meta: (tid, pstr, err-or-None)
-    for start in range(0, n, device_batch):
-        idx = list(range(start, min(start + device_batch, n)))
-        batch, _lengths, errors = source.waveforms(idx, cfg.duration_s, dev)
-        x = logmel_standardized(batch, cfg)
+    for idx, batch, _lengths, errors in _waveform_batches(
+            source, cfg.duration_s, device_batch, dev):
+        x = logmel_standardized(_on_device(batch, dev), cfg)
         keep = [r for r, e in enumerate(errors) if e is None]
         if len(keep) != len(idx):
             x = x[torch.as_tensor(keep, device=dev)]

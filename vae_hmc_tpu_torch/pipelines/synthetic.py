@@ -50,6 +50,9 @@ class SyntheticDataset:
     has_lyrics: np.ndarray           # (N,) bool (some tracks missing text)
     lyrics: List[Optional[str]]
     sample_rate: int = 22050
+    # per-row text provenance ("whisper"/"genius"/"both"/""), set by
+    # dataset_from_manifest
+    text_sources: Optional[List[str]] = None
 
     def __len__(self):
         return len(self.track_ids)
@@ -83,12 +86,65 @@ def _recipe_genre(genre: str) -> str:
     return keys[sum(g.encode()) % len(keys)]
 
 
-def _lyrics_for(genre: str, track_id: int, seed: int) -> str:
-    """Deterministic genre-vocab lyric text keyed by (seed, track_id) (the
-    JAX package's shared_frac = 0 case, which make_dataset uses)."""
+# words that appear in songs of EVERY genre: the manifest-backed source
+# mixes these in so the lyrics representation is not perfectly separable
+_SHARED_VOCAB = ("yeah time know way day eyes light world feel life gone "
+                 "never always one say take hold fall").split()
+
+
+def _lyrics_for(genre: str, track_id: int, seed: int,
+                shared_frac: float = 0.0) -> str:
+    """Deterministic genre-vocab lyric text keyed by (seed, track_id).
+
+    shared_frac > 0 mixes in cross-genre words at that rate (used by
+    dataset_from_manifest); make_dataset keeps shared_frac = 0, whose draws
+    are those of the plain per-genre text."""
     vocab = _LYRIC_VOCAB[_recipe_genre(genre)].split()
     r = np.random.default_rng(seed * 1000003 + int(track_id))
-    return " ".join(r.choice(vocab, size=60, replace=True))
+    words = r.choice(vocab, size=60, replace=True)
+    if shared_frac > 0.0:
+        mix = r.random(60) < shared_frac
+        shared = r.choice(np.asarray(_SHARED_VOCAB), size=60, replace=True)
+        words = np.where(mix, shared, words)
+    return " ".join(words)
+
+
+def dataset_from_manifest(manifest_path, seed: int = 42) -> SyntheticDataset:
+    """SyntheticDataset driven by a REAL manifest: its track ids, genres
+    (skew included), titles, artists and text coverage, with synthetic
+    waveforms (per-genre recipes keyed by the real track_id) and lyric
+    texts (genre vocab, rows with text only).  Whisper-sourced rows get
+    more cross-genre words than curated genius lyrics."""
+    from vae_hmc_tpu_torch.core.manifest import read_manifest
+
+    m = read_manifest(manifest_path, required=("track_id", "genre"))
+    track_ids = m.track_ids
+    genres = m.genres
+    titles = [r.get("title", f"track {r['track_id']}") for r in m.rows]
+    artists = [r.get("artist", "unknown") for r in m.rows]
+    # text_exists column when present (reference 05:46-48); otherwise any
+    # text path counts as coverage
+    has = []
+    for r in m.rows:
+        te = r.get("text_exists")
+        if te is not None and te != "":
+            has.append(str(te).strip().lower() == "true")
+        else:
+            has.append(bool(r.get("text_path_combined")
+                            or r.get("lyrics_path")))
+    has_lyrics = np.asarray(has, dtype=bool)
+    sources = [r.get("text_source_combined", r.get("lyrics_source", ""))
+               for r in m.rows]
+    frac = {"whisper": 0.45, "both": 0.3}
+    lyrics: List[Optional[str]] = [
+        _lyrics_for(genres[i], int(track_ids[i]), seed,
+                    shared_frac=frac.get(sources[i], 0.2))
+        if has_lyrics[i] else None
+        for i in range(len(m))
+    ]
+    return SyntheticDataset(track_ids=track_ids, genres=genres, titles=titles,
+                            artists=artists, has_lyrics=has_lyrics,
+                            lyrics=lyrics, text_sources=sources)
 
 
 def waveform(track_id: int, genre: str, duration_s: float, seed: int = 42,
