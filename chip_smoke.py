@@ -61,6 +61,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      PCM16 rows equal the same quantized waveforms fed to
      ``ops.mfcc.mfcc_stats_batch`` directly; it logs each tier's decode
      seconds, stage seconds and peak device memory.
+  9. the trainer's options on the card: (a) ``run-medium --synthetic 2924
+     --fast --epochs 2`` through ``cli.main`` (the full ConvMMVaeConfig
+     trained in bf16 with float32 master weights, 92 Adam steps), checking
+     the file contract, 21 and 102 rows, finite (2924, 32) latents, a
+     float32 checkpoint and a falling loss, and logging its train stage's
+     ms a step beside phase 5's float32 one; (b) resume: the full-width
+     ConvMMVAE on 2,924 synthetic standardized rows, 2 epochs straight
+     against 1 + 1 resumed from ``train_state.ckpt`` under deterministic
+     cuDNN, and the easy tier's DenseVaeConfig() on (2924, 80) rows, 4
+     epochs against 2 + 2, each bit for bit, with the fit's ms a step in
+     float32 (with and without deterministic cuDNN) and in bf16; (c) the
+     STFT's FFT method against its DFT method at (64, 1025, 1,292) and
+     (128, 1025, 646), within 1e-5 of the peak power, both timed.
 Each tier runs with the launch counters reset just before and read just
 after, and fails unless its kernels were launched.  Phase 2 also holds
 kernel 1 in the MFCC mode and on silent and zero-tailed rows at phase 8's
@@ -316,12 +329,13 @@ def phase_logmel(dev) -> dict:
     bands = mel_ops.filterbank_bands_tensor(cfg, dev)
     weights = mel_ops.filterbank_weights_tensor(cfg, dev)
     kw = dict(top_db=mel_ops.effective_top_db(cfg), standardize=True)
-    last = MAIN_TRACKS % DEVICE_BATCH      # the main path's partial batch
-    spec = _spectrogram(last, cfg, dev)
-    max_err = max(max_err, check_close(
-        f"B={last} main-path last batch",
-        mel_db_standardize(spec, fb, bands=bands, weights=weights, **kw),
-        mel_db_standardize_plain(spec, fb, **kw), 1e-4))
+    # the partial batches of the main path and of phase 9's CLI run
+    for last in (MAIN_TRACKS % DEVICE_BATCH, MAIN_TRACKS % FILE_BATCH):
+        spec = _spectrogram(last, cfg, dev)
+        max_err = max(max_err, check_close(
+            f"B={last} last batch of {MAIN_TRACKS} tracks",
+            mel_db_standardize(spec, fb, bands=bands, weights=weights, **kw),
+            mel_db_standardize_plain(spec, fb, **kw), 1e-4))
     spec = _spectrogram(DEVICE_BATCH, cfg, dev)
     build.reset_launch_counts()
     got = mel_db_standardize(spec, fb, bands=bands, weights=weights, **kw)
@@ -480,17 +494,25 @@ def phase_logmel_file_rows(dev) -> dict:
                     spec, fb, bands=bands, weights=weights, **kw))
                 plain_ms = time_ms(lambda: mel_db_standardize_plain(
                     spec, fb, **kw))
+                # yardstick as in phase 2: cuBLAS matmul(fb, spec) + torch ops
+                if kw["standardize"]:
+                    library_ms = time_ms(lambda: mel_ops.per_sample_standardize(
+                        mel_ops.power_to_db(torch.matmul(fb, spec),
+                                            top_db=kw["top_db"])))
+                else:
+                    library_ms = time_ms(lambda: mel_ops.power_to_db(
+                        torch.matmul(fb, spec), ref_max=False, top_db=80.0))
                 m, f, t = fb.shape[0], spec.shape[1], spec.shape[2]
                 nnz = weights.numel()
                 bound_ms, bound_by = bound(
                     4.0 * (b * f * t + 2 * m + nnz + b * m * t),
                     2.0 * nnz * b * t)
                 log(f"  timing at ({b}, {f}, {t}): kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-                    f"{bound_by}")
+                    f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+                    f"{bound_ms:.4f} ms by {bound_by}")
                 rows.append({"tier": tier, "shape": [b, f, t, m], "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": bound_ms,
-                             "bound_by": bound_by})
+                             "plain_ms": plain_ms, "library_ms": library_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by})
             del y, spec, got, want
     torch.cuda.empty_cache()
     return {"file_rows_max_abs_err": max_err, "file_rows": rows}
@@ -603,6 +625,21 @@ def phase_distance(dev, lyrics_rows: int, file_shapes: list) -> dict:
     log(f"  timing at (256, 82688) self: kernel {flat_ms:.4f} ms, plain "
         f"{flat_plain:.4f} ms, torch.cdist {flat_library:.4f} ms, bound "
         f"{flat_bound:.4f} ms by {flat_by}")
+    file_rows = []
+    for n_f, d_f in sorted(set(file_shapes)):   # phase 8's caches, self
+        xt = centred(n_f, d_f)
+        reps = 10 if d_f > 1000 else 200
+        t_ms = time_ms(lambda: pairwise_dists(xt), reps=reps)
+        t_plain = time_ms(lambda: pairwise_dists_plain(xt), reps=reps)
+        t_lib = time_ms(lambda: torch.cdist(xt, xt), reps=reps)
+        t_bound, t_by = dist_bound(n_f, n_f, d_f, self_dist=True)
+        log(f"  timing at ({n_f}, {d_f}) self: kernel {t_ms:.5f} ms, plain "
+            f"{t_plain:.5f} ms, torch.cdist {t_lib:.5f} ms, bound "
+            f"{t_bound:.5f} ms by {t_by}")
+        file_rows.append({"shape": [n_f, n_f, d_f], "ms": t_ms,
+                          "plain_ms": t_plain, "library_ms": t_lib,
+                          "bound_ms": t_bound, "bound_by": t_by})
+        del xt
     # the sweep's per-representation cache at the mel-flat width
     del xf
     xs = centred(MAIN_TRACKS, MEL_FLAT)
@@ -630,7 +667,7 @@ def phase_distance(dev, lyrics_rows: int, file_shapes: list) -> dict:
             "sweep_cache_library_ms": cache_library,
             "sweep_cache_bound_ms": cache_bound,
             "sweep_cache_shape": [MAIN_TRACKS, MAIN_TRACKS, MEL_FLAT],
-            "tier_rows": tier_rows}
+            "tier_rows": tier_rows, "file_rows": file_rows}
 
 
 def phase_main_path(dev):
@@ -916,7 +953,8 @@ def phase_medium_pipeline(dev, lyrics_rows: int) -> dict:
     if tsne_launches["pairwise_dists"] <= 0:
         fail("t-SNE did not take its distances from kernel 2")
     return {"seconds": sec, "launches": launches, "peak_bytes": peak,
-            "figures": kind, "tsne_seconds": tsne_s}
+            "figures": kind, "tsne_seconds": tsne_s,
+            "history": [h["total"] for h in out["train"]["history"]]}
 
 
 # the easy tier's file contract (the JAX package's
@@ -1481,6 +1519,231 @@ def _check_file_outputs(corpus: Path, ok: int, lyrics_rows: int,
         f"latents silhouette {float(suite[0]['silhouette']):.5f}")
 
 
+FAST_EPOCHS = 2                  # phase 9's run-medium --fast
+
+
+def _fit_timed(model, arrays, epochs: int, **kw):
+    """models.train.fit with a synchronize at each end; -> (FitResult,
+    seconds)."""
+    import torch
+    from vae_hmc_tpu_torch.models.train import fit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit(model, arrays, epochs=epochs, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _assert_same_fit(what: str, a, b, ra, rb) -> None:
+    """Fail unless two models' parameters and two histories are equal bit
+    for bit."""
+    import torch
+    if ra.history != rb.history:
+        fail(f"{what}: histories differ: {ra.history} vs {rb.history}")
+    for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+        if not torch.equal(x, y):
+            fail(f"{what}: parameter {name} differs (max abs "
+                 f"{float((x - y).abs().max()):.3e})")
+    log(f"  {what}: parameters and history bit-identical")
+
+
+def phase_fast_mode(dev, medium: dict) -> dict:
+    """Phase 9 (a): ``run-medium --fast`` through ``cli.main`` at full
+    width, 2,924 synthetic tracks and 2 epochs (92 Adam steps in bf16),
+    with the launch counters reset just before and read just after; the
+    file contract, float32 weights in the checkpoint, a falling loss;
+    `medium` is phase 5's result, the float32 run of the same tier."""
+    import csv
+    import tempfile
+    import numpy as np
+    from vae_hmc_tpu_torch import cli
+
+    steps = FAST_EPOCHS * -(-MAIN_TRACKS // 64)
+    log(f"phase 9 (a): run-medium --synthetic {MAIN_TRACKS} --fast --epochs "
+        f"{FAST_EPOCHS} through cli.main ({steps} bf16 Adam steps at full "
+        "width)")
+    with tempfile.TemporaryDirectory() as root:
+        rc, launches, wall, peak = _run_tier(
+            dev, "run-medium --fast", lambda: cli.main([
+                "run-medium", "--synthetic", str(MAIN_TRACKS), "--fast",
+                "--epochs", str(FAST_EPOCHS), "--root", root]))
+        if rc != 0:
+            fail(f"run-medium --fast exited {rc}")
+        ws = Path(root)
+        timing = json.loads((ws / "results/timing_medium.json").read_text())
+        lines = {}
+        for name in ("medium_clustering_metrics_all.csv",
+                     "medium_full_sweep_metrics.csv"):
+            with open(ws / "results" / name, newline="") as f:
+                lines[name] = len(list(csv.reader(f))) - 1
+        with open(ws / "results/vae_conv_mm_medium/train_log.csv",
+                  newline="") as f:
+            history = [float(r["loss"]) for r in csv.DictReader(f)]
+        mu = np.load(ws / "data/vae_mm_latents_mu.npy")
+        ckpt = ws / f"results/vae_conv_mm_medium/ckpt_epoch_{FAST_EPOCHS:03d}.pt"
+        meta = json.loads(Path(str(ckpt) + ".meta.json").read_text())
+        with np.load(ckpt) as z:
+            dtypes = {z[k].dtype.name for k in z.files}
+            n_arrays = len(z.files)
+    _log_stages(timing, "timing_medium.json, --fast")
+    train_s = timing["seconds"]["train_conv_mm"]
+    medium_train_s = medium["seconds"]["train_conv_mm"]
+    log(f"  train_conv_mm {train_s:.3f} s for {steps} bf16 steps and the "
+        f"export: {1e3 * train_s / steps:.2f} ms a step; phase 5's float32 "
+        f"stage {medium_train_s:.3f} s for {steps // FAST_EPOCHS} steps: "
+        f"{1e3 * medium_train_s * FAST_EPOCHS / steps:.2f} ms a step")
+    f32 = [round(h, 6) for h in medium["history"]]
+    log(f"  loss per epoch: bf16 {history}, phase 5's float32 {f32}; "
+        f"checkpoint {n_arrays} arrays of {sorted(dtypes)}, compute_dtype "
+        f"{meta['config']['compute_dtype']!r}")
+    if lines != {"medium_clustering_metrics_all.csv": 21,
+                 "medium_full_sweep_metrics.csv": 102}:
+        fail(f"run-medium --fast rows {lines}, want 21 and 102")
+    if mu.shape != (MAIN_TRACKS, 32) or not np.isfinite(mu).all():
+        fail(f"run-medium --fast latents {mu.shape}, or non-finite")
+    if dtypes != {"float32"} or meta["config"]["compute_dtype"] != "bfloat16":
+        fail(f"run-medium --fast checkpoint dtypes {dtypes}, compute_dtype "
+             f"{meta['config']['compute_dtype']!r}")
+    if len(history) != FAST_EPOCHS or not history[1] < history[0]:
+        fail(f"run-medium --fast loss per epoch {history}: not falling")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched by run-medium --fast")
+    return {"seconds": timing["seconds"], "launches": launches,
+            "peak_bytes": peak, "history": history,
+            "ms_per_step": 1e3 * train_s / steps}
+
+
+def phase_resume_on_card(dev) -> dict:
+    """Phase 9 (b): a full-width ConvMMVAE on 2,924 synthetic standardized
+    rows, 2 epochs straight against 1 epoch with a checkpoint and a
+    resumed fit to 2, under deterministic cuDNN (the flag restored after);
+    the easy tier's DenseVaeConfig() on (2924, 80) rows, 4 epochs against
+    2 + 2.  Both must repeat bit for bit.  Also times one epoch of the
+    conv fit in float32 with and without deterministic cuDNN and in
+    bf16."""
+    import tempfile
+    import torch
+    from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig, DenseVaeConfig
+    from vae_hmc_tpu_torch.models.api import build_conv_mm_vae
+    from vae_hmc_tpu_torch.models.dense_vae import DenseVAE
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = torch.randn((MAIN_TRACKS, 128, 646, 1), generator=gen, device=dev)
+    x = (x - x.mean(dim=(1, 2, 3), keepdim=True)) / x.std(
+        dim=(1, 2, 3), keepdim=True)
+    lyr = torch.randn((MAIN_TRACKS, 384), generator=gen, device=dev)
+    mask = (torch.rand((MAIN_TRACKS, 1), generator=gen, device=dev)
+            < 0.9).float()
+    cfg = ConvMMVaeConfig()
+    kw = dict(batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
+              beta=cfg.beta, reduction=cfg.loss_reduction, seed=cfg.seed)
+    steps = -(-MAIN_TRACKS // cfg.batch_size)
+
+    def conv():
+        return build_conv_mm_vae(cfg, 128, 646, 384).to(dev)
+
+    log(f"phase 9 (b): resume on the card, full-width ConvMMVAE on "
+        f"({MAIN_TRACKS}, 128, 646, 1) rows, {steps} steps an epoch")
+    _, nondet_s = _fit_timed(conv(), (x, lyr, mask), 1, **kw)
+    _, bf16_s = _fit_timed(conv(), (x, lyr, mask), 1, compute_dtype="bfloat16",
+                           **kw)
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight = conv()
+        rs, det_s = _fit_timed(straight, (x, lyr, mask), 2, **kw)
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = dict(checkpoint_dir=tmp, checkpoint_every=1)
+            _, saved_s = _fit_timed(conv(), (x, lyr, mask), 1, **ck, **kw)
+            size = (Path(tmp) / "train_state.ckpt").stat().st_size
+            resumed = conv()
+            rr, resume_s = _fit_timed(resumed, (x, lyr, mask), 2, **ck, **kw)
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    log(f"  float32 fit: {1e3 * nondet_s / steps:.2f} ms a step (1 epoch, "
+        f"cuDNN's default algorithms), {1e3 * det_s / (2 * steps):.2f} ms a "
+        f"step (2 epochs, deterministic cuDNN); bf16 fit: "
+        f"{1e3 * bf16_s / steps:.2f} ms a step (1 epoch)")
+    save_s = saved_s - det_s / 2          # 1 epoch + 1 write
+    log(f"  train_state.ckpt {size / 2**20:.1f} MiB: 1 epoch and a write "
+        f"{saved_s:.3f} s (the write ~{save_s:.3f} s); the resumed fit "
+        f"(read, 1 epoch, write) {resume_s:.3f} s (the read ~"
+        f"{resume_s - saved_s:.3f} s)")
+    log(f"  conv loss per epoch: {[h['total'] for h in rs.history]}")
+    _assert_same_fit("conv 2 straight vs 1 + 1 resumed", straight, resumed,
+                     rs, rr)
+    del x, lyr, mask, straight, resumed
+    torch.cuda.empty_cache()
+
+    dcfg = DenseVaeConfig()
+    xd = torch.randn((MAIN_TRACKS, 80), generator=gen, device=dev)
+    dkw = dict(batch_size=dcfg.batch_size, learning_rate=dcfg.learning_rate,
+               beta=dcfg.beta, reduction=dcfg.loss_reduction, seed=dcfg.seed)
+
+    def dense():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(dcfg.seed)
+            return DenseVAE(80, tuple(dcfg.hidden_dims),
+                            dcfg.latent_dim).to(dev)
+
+    log("  dense: DenseVaeConfig() on (2924, 80) rows, 4 epochs against "
+        "2 + 2 resumed")
+    straight = dense()
+    rs, _ = _fit_timed(straight, (xd,), 4, **dkw)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = dict(checkpoint_dir=tmp, checkpoint_every=2)
+        _fit_timed(dense(), (xd,), 2, **ck, **dkw)
+        resumed = dense()
+        rr, _ = _fit_timed(resumed, (xd,), 4, **ck, **dkw)
+    _assert_same_fit("dense 4 straight vs 2 + 2 resumed", straight, resumed,
+                     rs, rr)
+    return {"f32_ms_per_step": 1e3 * nondet_s / steps,
+            "f32_deterministic_ms_per_step": 1e3 * det_s / (2 * steps),
+            "bf16_ms_per_step": 1e3 * bf16_s / steps,
+            "checkpoint_mib": size / 2**20}
+
+
+def phase_stft_fft(dev) -> list:
+    """Phase 9 (c): the STFT's FFT method (``torch.fft.rfft``, cuFFT)
+    against its DFT method (two fp32 GEMMs) on the card at the easy tier's
+    MFCC batch (64 x 30 s) and the medium batch (128 x 15 s): max |diff|
+    within 1e-5 of the peak power; both timed by CUDA graph replays."""
+    from vae_hmc_tpu_torch.core.config import MFCC_EASY, MelConfig
+    from vae_hmc_tpu_torch.ops.stft import power_spectrogram
+    from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
+
+    log("phase 9 (c): power_spectrogram(method='fft') against 'dft'")
+    rows = []
+    for what, cfg, b in (("easy", MFCC_EASY, MFCC_BATCH),
+                         ("medium", MelConfig(), DEVICE_BATCH)):
+        y, _, _ = SyntheticSource.make(b, seed=5).waveforms(
+            list(range(b)), cfg.duration_s, dev)
+
+        def spec(method):
+            return power_spectrogram(y, n_fft=cfg.n_fft,
+                                     hop_length=cfg.hop_length, method=method)
+        dft, fft = spec("dft"), spec("fft")
+        peak = float(dft.max())
+        err = float((fft - dft).abs().max())
+        log(f"  {what} {tuple(dft.shape)}: max |fft - dft| {err:.3e}, "
+            f"{err / peak:.3e} of the peak power {peak:.4e}")
+        if not err <= 1e-5 * peak:
+            fail(f"STFT fft vs dft at {tuple(dft.shape)}: {err / peak:.3e} "
+                 "of the peak, want <= 1e-5")
+        shape = list(dft.shape)
+        del dft, fft
+        dft_ms = time_ms(lambda: spec("dft"), reps=5, warmup=2)
+        fft_ms = time_ms(lambda: spec("fft"), reps=5, warmup=2)
+        log(f"  {what} {tuple(shape)}: dft {dft_ms:.4f} ms, fft {fft_ms:.4f} "
+            f"ms a spectrogram")
+        rows.append({"tier": what, "shape": shape, "rel_err": err / peak,
+                     "dft_ms": dft_ms, "fft_ms": fft_ms})
+        del y
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1508,6 +1771,12 @@ def main() -> None:
     hard_tier = phase_hard_pipeline(dev)
     torch.cuda.empty_cache()
     files = phase_file_corpus(dev, file_lyrics, file_shapes)
+    torch.cuda.empty_cache()
+    fast = phase_fast_mode(dev, pipeline)
+    torch.cuda.empty_cache()
+    phase_resume_on_card(dev)
+    torch.cuda.empty_cache()
+    phase_stft_fft(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sweep_launches"] = sweep["launches"][k["name"]]
@@ -1520,6 +1789,7 @@ def main() -> None:
                for tier in ("easy", "hard", "medium")},
             "synthetic_audio": files["synthetic_audio"]["launches"][
                 k["name"]]}
+        k["fast_launches"] = fast["launches"][k["name"]]
     log(f"done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

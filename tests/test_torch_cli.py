@@ -94,12 +94,44 @@ def test_cuda_by_default_raises_without_a_gpu(monkeypatch, tmp_path):
 
 
 def test_bench_and_fast_exit_non_zero(capsys, tmp_path):
+    """bench exits non-zero until the port has a benchmark.  (Its other
+    half, run-medium --fast, now trains in bf16:
+    test_run_medium_fast_trains_bf16_with_float32_weights.)"""
     assert tcli.main(["bench"]) != 0
     assert "Queue 1 item 2" in capsys.readouterr().err
-    assert tcli.main(["run-medium", "--fast", "--device", "cpu",
-                      "--synthetic", "6", "--root", str(tmp_path)]) != 0
-    assert "Queue 1 item 4" in capsys.readouterr().err
     assert not (tmp_path / "data").exists()
+
+
+def test_run_medium_fast_trains_bf16_with_float32_weights(capsys, tmp_path):
+    """run-medium --fast: the whole tier at a tiny size with the conv VAE
+    trained in bf16 (the config says so), the NON-PARITY warning on
+    stderr, float32 master weights in the checkpoint, the file contract."""
+    assert tcli.main(["run-medium", "--fast", "--device", "cpu",
+                      "--synthetic", "6", "--duration", "1.0", "--epochs",
+                      "2", "--root", str(tmp_path)]) == 0
+    out = capsys.readouterr()
+    assert "NON-PARITY" in out.err and "--fast" in out.err
+    assert "medium pipeline complete" in out.out
+    res = tmp_path / "results"
+    for rel in ("data/audio_cnn_mel_X.npy", "data/lyrics_embeddings.npy",
+                "results/timing_medium.json",
+                "results/report_medium/best_filtered.csv"):
+        assert (tmp_path / rel).exists(), rel
+    assert len((res / "medium_clustering_metrics_all.csv").read_text()
+               .strip().split("\n")) == 22
+    assert len((res / "medium_full_sweep_metrics.csv").read_text()
+               .strip().split("\n")) == 103
+    log = (res / "vae_conv_mm_medium/train_log.csv").read_text().split()
+    assert log[0] == "epoch,loss,recon,kl" and len(log) == 3
+    mu = np.load(tmp_path / "data/vae_mm_latents_mu.npy")
+    assert mu.shape == (6, 32) and mu.dtype == np.float32
+    assert np.isfinite(mu).all()
+    ckpt = res / "vae_conv_mm_medium/ckpt_epoch_002.pt"
+    meta = json.loads(Path(str(ckpt) + ".meta.json").read_text())
+    assert meta["config"]["compute_dtype"] == "bfloat16"
+    with np.load(ckpt) as z:
+        assert len(z.files) == 32
+        assert {z[k].dtype for k in z.files} == {np.dtype(np.float32)}
 
 
 @pytest.fixture(scope="module")

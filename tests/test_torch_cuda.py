@@ -1,8 +1,9 @@
 """GPU tests of the port: each CUDA kernel against its plain version on the
 card (kernel 1 also in the MFCC mode at the easy and hard tiers' frame
 counts), the main path and the three tiers through both kernels at a small
-size, and MiniLM, MFCC stats and the scripts 13/16 sweep on the card
-against the CPU.
+size, MiniLM, MFCC stats, the scripts 13/16 sweep and the bf16 train step
+on the card against the CPU, and a resumed dense fit against a straight
+one.
 
 Marked ``cuda``; they skip without a GPU.  The GPU machine has no JAX and
 tests/conftest.py imports it, so this file imports torch and numpy only and
@@ -484,3 +485,77 @@ def test_file_source_mfcc_stats_on_gpu_match_cpu(gpu, tmp_path):
         np.testing.assert_array_equal(ids, wids)
         assert rep.rows == wrep.rows and len(ids) == 12
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+
+
+def _fit_case(kind, device):
+    """A small ConvMMVAE or DenseVAE seeded on the host, its data, and the
+    fit arguments (the test shapes of tests/test_torch_fit_options.py)."""
+    from vae_hmc_tpu_torch.models.conv_mm_vae import ConvMMVAE
+    from vae_hmc_tpu_torch.models.dense_vae import DenseVAE
+    rng = np.random.default_rng(0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        if kind == "conv":
+            model = ConvMMVAE(n_mels=32, n_frames=48, latent_dim=8, fc_dim=64)
+            arrays = [rng.normal(0, 1, (24, 32, 48, 1)),
+                      rng.normal(0, 1, (24, 384)),
+                      (rng.random((24, 1)) < 0.7)]
+            kw = dict(batch_size=8, learning_rate=2e-3, seed=0)
+        else:
+            model = DenseVAE(24, (32, 32), 6)
+            arrays = [rng.standard_normal((50, 24))]
+            kw = dict(batch_size=16, learning_rate=1e-3, seed=5)
+    return (model.to(device),
+            [torch.tensor(a, dtype=torch.float32, device=device)
+             for a in arrays], kw)
+
+
+@pytest.mark.parametrize("kind", ["conv", "dense"])
+def test_bf16_fit_on_gpu_matches_cpu(gpu, kind):
+    """The bf16 step on the card against the same step on the CPU, with the
+    same injected permutations and noise: every layer computes in bf16,
+    the weights stay float32, and each history column is within 2e-3 of
+    the epoch's total (one bf16 rounding unit of the loss; cuDNN/cuBLAS
+    against the CPU's bf16 kernels)."""
+    from vae_hmc_tpu_torch.models.train import fit
+    n, bs, lat = (24, 8, 8) if kind == "conv" else (50, 16, 6)
+    perms = [np.random.default_rng(e).permutation(n) for e in range(3)]
+    rng = np.random.default_rng(3)
+    eps = {(e, s // bs): rng.standard_normal((len(perms[e][s:s + bs]), lat))
+           .astype(np.float32) for e in range(3) for s in range(0, n, bs)}
+    histories = []
+    for dev in ("cpu", gpu):
+        model, arrays, kw = _fit_case(kind, dev)
+        seen = set()
+        for layer in model.modules():
+            if not list(layer.children()):
+                layer.register_forward_hook(
+                    lambda mod, inp, out: seen.add(out.dtype))
+        res = fit(model, arrays, epochs=3, compute_dtype="bfloat16",
+                  perms=perms, eps_fn=lambda e, i: torch.from_numpy(eps[e, i]),
+                  **kw)
+        assert seen == {torch.bfloat16}
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        histories.append(res.history)
+    for c, g in zip(*histories):
+        gap = max(abs(c[k] - g[k]) for k in ("total", "recon", "kl"))
+        print(f"bf16 {kind} epoch {c['epoch']}: card - cpu {gap:.3e} "
+              f"of total {c['total']:.6f}")
+        assert gap <= 2e-3 * abs(c["total"]), (c, g)
+
+
+def test_dense_resume_on_gpu_bit_for_bit(gpu, tmp_path):
+    """On the card, with the port's own random streams: 2 epochs, a
+    checkpoint, and a resumed fit to 4 equal the straight 4 bit for bit
+    (weights and history)."""
+    from vae_hmc_tpu_torch.models.train import fit
+    straight, arrays, kw = _fit_case("dense", gpu)
+    rs = fit(straight, arrays, epochs=4, **kw)
+    ck = dict(checkpoint_dir=str(tmp_path), checkpoint_every=2)
+    fit(_fit_case("dense", gpu)[0], arrays, epochs=2, **ck, **kw)
+    resumed = _fit_case("dense", gpu)[0]
+    rr = fit(resumed, arrays, epochs=4, **ck, **kw)
+    assert rr.history == rs.history
+    for (name, a), b in zip(straight.state_dict().items(),
+                            resumed.state_dict().values()):
+        assert torch.equal(a, b), name

@@ -11,10 +11,10 @@ sources: ``--synthetic N`` runs on the deterministic synthetic dataset;
 waveforms; otherwise ``--manifest`` points at the real manifest and audio
 tree (paths relative to ``--root``).
 
-Not ported yet: ``bench`` (the port's benchmark, ROADMAP Queue 1 item 2)
-and ``run-medium --fast`` (bf16 training, Queue 1 item 4) exit non-zero
-with a message.  The JAX package's persistent XLA compile cache has no
-counterpart here.
+Not ported yet: ``bench`` (the port's benchmark) exits non-zero with a
+message.  ``run-medium --fast`` trains the conv VAE in bf16 mixed
+precision, a non-parity mode, as the JAX package's does.  The JAX
+package's persistent XLA compile cache has no counterpart here.
 """
 from __future__ import annotations
 
@@ -32,9 +32,9 @@ from vae_hmc_tpu_torch.core.config import (AeConfig, ConvMMVaeConfig,
 BENCH_MISSING = (
     "bench: the port has no benchmark yet (ROADMAP Queue 1 item 2); "
     "python3 chip_smoke.py drives every path on the card meanwhile")
-FAST_MISSING = (
-    "run-medium --fast: bf16 training is not ported yet (ROADMAP Queue 1 "
-    "item 4); run without --fast for the float32 parity mode")
+FAST_WARNING = (
+    "[run-medium] --fast: bf16 training is a NON-PARITY perf mode; quality "
+    "columns are not comparable to the f32 parity run")
 
 
 def _manifest_path(args) -> Path:
@@ -223,8 +223,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip the 342 MB ckpt_epoch_NNN.pt write; the "
                         "train_log/latent contract is still written")
     p.add_argument("--fast", action="store_true",
-                   help="bf16 mixed-precision training: not ported yet "
-                        "(exits non-zero)")
+                   help="bf16 mixed-precision training (float32 master "
+                        "weights) — NON-PARITY: the 25-epoch loss "
+                        "trajectory drifts vs the reference's f32 training")
 
     # ---- hard (18-22) ----
     p = sub.add_parser("prepare-hard", help="script 18: hard feature prep")
@@ -297,9 +298,6 @@ def main(argv=None) -> int:
     cmd = args.cmd
     if cmd == "bench":
         print(BENCH_MISSING, file=sys.stderr)
-        return 2
-    if cmd == "run-medium" and args.fast:
-        print(FAST_MISSING, file=sys.stderr)
         return 2
     from vae_hmc_tpu_torch.core.device import resolve_device
 
@@ -456,12 +454,16 @@ def main(argv=None) -> int:
             print(f"wrote {out['clusters_png']}")
         else:
             mel_cfg = MelConfig(duration_s=args.duration)
+            if args.fast:
+                print(FAST_WARNING, file=sys.stderr)
             medium.run_medium_pipeline(
                 # reuse the source built for the genre map above
                 src if src is not None else _source(args), ws,
                 mel_cfg=mel_cfg,
-                vae_cfg=ConvMMVaeConfig(epochs=args.epochs, seed=args.seed,
-                                        in_frames=mel_cfg.n_frames),
+                vae_cfg=ConvMMVaeConfig(
+                    epochs=args.epochs, seed=args.seed,
+                    in_frames=mel_cfg.n_frames,
+                    compute_dtype="bfloat16" if args.fast else "float32"),
                 device_batch=args.device_batch, verbose=args.verbose,
                 write_mel_features=not args.no_write_mel,
                 save_epoch_checkpoints=not args.no_checkpoint, device=dev)

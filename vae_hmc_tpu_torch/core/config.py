@@ -1,17 +1,20 @@
 """Configuration dataclasses, copied from the JAX package.
 
-Copies of ``vae_hmc_tpu.core.config`` ``Workspace``, ``MelConfig``,
-``MfccConfig`` (``MFCC_EASY``, ``MFCC_HARD``), ``DenseVaeConfig``
-(``DENSE_VAE_EASY``), ``ConvMMVaeConfig``, ``HardVaeConfig``
-(``HARD_BETA_VAE``, ``HARD_CVAE``), ``AeConfig``, ``KMeansConfig``,
-``SweepConfig``, ``TextEmbedConfig`` (``TEXT_HARD``), ``TsneConfig``,
-``UmapConfig`` (``UMAP_EASY``, ``UMAP_HARD``) and ``asdict`` with their
-reference citations, so the port never imports the JAX package.  Field
+Copies of ``vae_hmc_tpu.core.config`` ``Workspace``, ``MelConfig``
+(``MEL_MEDIUM``), ``MfccConfig`` (``MFCC_EASY``, ``MFCC_HARD``),
+``DenseVaeConfig`` (``DENSE_VAE_EASY``), ``ConvMMVaeConfig``
+(``CONV_MM_VAE_MEDIUM``), ``HardVaeConfig`` (``HARD_BETA_VAE``,
+``HARD_CVAE``), ``AeConfig`` (``AE_BASELINE_HARD``), ``KMeansConfig``
+(``KMEANS_EASY``, ``KMEANS_HARD``), ``SweepConfig`` (``SWEEP_MEDIUM``),
+``TextEmbedConfig`` (``TEXT_MEDIUM``, ``TEXT_HARD``), ``TsneConfig``
+(``TSNE_DEFAULT``), ``UmapConfig`` (``UMAP_EASY``, ``UMAP_HARD``),
+``asdict`` and ``to_json`` with their reference citations, so the port never imports the JAX package.  Field
 values are identical; the tests compare them.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
@@ -24,6 +27,13 @@ def asdict(cfg) -> dict:
         if isinstance(v, Path):
             d[k] = str(v)
     return d
+
+
+def to_json(cfg, path: Path) -> None:
+    """Write ``asdict(cfg)`` as indented JSON, creating the directory."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(asdict(cfg), indent=2, default=str))
 
 
 @dataclass(frozen=True)
@@ -77,6 +87,9 @@ class MelConfig:
     def n_frames(self) -> int:
         # center=True framing: 1 + n_samples // hop  (librosa stft semantics)
         return 1 + self.n_samples // self.hop_length
+
+
+MEL_MEDIUM = MelConfig()           # script 10 canonical
 
 
 @dataclass(frozen=True)
@@ -153,6 +166,9 @@ class ConvMMVaeConfig:
     compute_dtype: str = "float32"
 
 
+CONV_MM_VAE_MEDIUM = ConvMMVaeConfig()
+
+
 @dataclass(frozen=True)
 class HardVaeConfig:
     """Beta-VAE / CVAE on early-fused features, hard tier (reference scripts/19:136-155)."""
@@ -193,6 +209,9 @@ class AeConfig:
     seed: int = 42
 
 
+AE_BASELINE_HARD = AeConfig()
+
+
 @dataclass(frozen=True)
 class KMeansConfig:
     n_clusters: int = 5            # easy: 07:70 k=5; hard uses k=#genres (20:65)
@@ -203,6 +222,10 @@ class KMeansConfig:
     # consumed by the tier pipelines (they scale before calling kmeans);
     # kmeans() itself takes data as given.
     standardize: bool = True       # easy: 07:67-68 scales; hard: 20:65-69 does NOT
+
+
+KMEANS_EASY = KMeansConfig(n_clusters=5, standardize=True)
+KMEANS_HARD = KMeansConfig(n_clusters=6, standardize=False)
 
 
 @dataclass(frozen=True)
@@ -217,6 +240,9 @@ class SweepConfig:
     seed: int = 42
 
 
+SWEEP_MEDIUM = SweepConfig()
+
+
 @dataclass(frozen=True)
 class TextEmbedConfig:
     model_name: str = "sentence-transformers/all-MiniLM-L6-v2"  # 11:85
@@ -227,6 +253,7 @@ class TextEmbedConfig:
     batch_size: int = 64
 
 
+TEXT_MEDIUM = TextEmbedConfig()
 TEXT_HARD = TextEmbedConfig(min_chars=1)
 
 
@@ -247,5 +274,6 @@ class UmapConfig:
     seed: int = 42
 
 
+TSNE_DEFAULT = TsneConfig()
 UMAP_EASY = UmapConfig()
 UMAP_HARD = UmapConfig(n_neighbors=20, min_dist=0.15)

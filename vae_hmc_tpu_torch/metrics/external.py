@@ -62,9 +62,18 @@ def mutual_info(labels_a, labels_b) -> float:
     return float((pij[nz] * (np.log(pij[nz]) - np.log((pi @ pj)[nz]))).sum())
 
 
-def normalized_mutual_info(labels_a, labels_b) -> float:
-    """sklearn.metrics.normalized_mutual_info_score (arithmetic mean of the
-    entropies, the only normalization the hard tier uses)."""
+_AVERAGES = {"arithmetic": lambda ha, hb: 0.5 * (ha + hb),
+             "geometric": lambda ha, hb: np.sqrt(ha * hb),
+             "min": min, "max": max}
+
+
+def normalized_mutual_info(labels_a, labels_b,
+                           average_method: str = "arithmetic") -> float:
+    """sklearn.metrics.normalized_mutual_info_score; `average_method` is
+    the mean of the two entropies that normalizes the mutual information
+    (arithmetic, geometric, min or max)."""
+    if average_method not in _AVERAGES:
+        raise ValueError(average_method)
     a = _as_codes(labels_a)
     b = _as_codes(labels_b)
     ha = _entropy(np.bincount(a))
@@ -72,7 +81,7 @@ def normalized_mutual_info(labels_a, labels_b) -> float:
     if ha == 0.0 and hb == 0.0:
         return 1.0  # both labelings single-cluster: sklearn special case
     mi = mutual_info(a, b)
-    denom = 0.5 * (ha + hb)
+    denom = _AVERAGES[average_method](ha, hb)
     if denom == 0.0:
         return 0.0
     return float(np.clip(mi / denom, 0.0, 1.0))

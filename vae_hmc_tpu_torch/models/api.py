@@ -30,10 +30,8 @@ from vae_hmc_tpu_torch.models.train import encode_in_batches, fit
 def build_conv_mm_vae(cfg: ConvMMVaeConfig, n_mels: int, n_frames: int,
                       lyrics_dim: int) -> ConvMMVAE:
     """ConvMMVAE initialized from ``cfg.seed`` without touching the global
-    torch RNG."""
-    if cfg.compute_dtype != "float32":
-        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: only float32 "
-                         "is ported")
+    torch RNG (float32 parameters whatever ``cfg.compute_dtype``: the
+    trainer casts them per step)."""
     return _seeded(cfg.seed, lambda: ConvMMVAE(
         n_mels=n_mels, n_frames=n_frames, channels=tuple(cfg.audio_channels),
         fc_dim=cfg.audio_fc_dim, latent_dim=cfg.latent_dim,
@@ -51,11 +49,14 @@ def _seeded(seed: int, make: Callable[[], torch.nn.Module]) -> torch.nn.Module:
 def train_conv_mm_vae(x, lyr, mask, cfg: ConvMMVaeConfig, device="cuda",
                       model: Optional[ConvMMVAE] = None,
                       perms: Optional[Sequence[np.ndarray]] = None,
-                      eps_fn: Optional[Callable] = None):
+                      eps_fn: Optional[Callable] = None,
+                      verbose: bool = False):
     """x: (N, n_mels, T, 1) standardized log-mel; lyr: (N, 384) lyrics
     embeddings (zeros when missing); mask: (N,) or (N, 1) presence gate.
-    Arrays may be numpy or tensors; they move to `device`.  `model`,
-    `perms` and `eps_fn` are test hooks (carried-over weights, injected
+    Arrays may be numpy or tensors; they move to `device`.  Training runs
+    in ``cfg.compute_dtype`` ("float32", or "bfloat16" mixed precision);
+    the latent export in float32, as the JAX package's.  `model`, `perms`
+    and `eps_fn` are test hooks (carried-over weights, injected
     randomness).  -> (model, history, mu (N, latent) on `device`)."""
     dev = resolve_device(device)
     arrays = (torch.as_tensor(x, dtype=torch.float32, device=dev),
@@ -68,8 +69,8 @@ def train_conv_mm_vae(x, lyr, mask, cfg: ConvMMVaeConfig, device="cuda",
     model = model.to(dev)
     res = fit(model, arrays, epochs=cfg.epochs, batch_size=cfg.batch_size,
               learning_rate=cfg.learning_rate, beta=cfg.beta,
-              reduction=cfg.loss_reduction, seed=cfg.seed, perms=perms,
-              eps_fn=eps_fn)
+              reduction=cfg.loss_reduction, seed=cfg.seed, verbose=verbose,
+              compute_dtype=cfg.compute_dtype, perms=perms, eps_fn=eps_fn)
     model.eval()
     mu = encode_in_batches(lambda xb, lb, mb: model.encode(xb, lb, mb)[0],
                            arrays, batch_size=256)

@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vae_hmc_tpu_torch.models.dense_vae import reparameterize
+
 
 def _conv_out(n: int, k: int = 3, s: int = 2, p: int = 1) -> int:
     return (n + 2 * p - k) // s + 1
@@ -89,11 +91,12 @@ class ConvMMVAE(nn.Module):
         h = h[:, :, : self.n_mels, : self.n_frames]            # crop (ref 12:260)
         return h.permute(0, 2, 3, 1)
 
-    def forward(self, x, lyr, m, eps: Optional[torch.Tensor] = None):
-        """-> (xhat, mu, logvar); `eps` injects the reparameterization noise
-        (tests feed both frameworks the same eps)."""
+    def forward(self, x, lyr, m, eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """-> (xhat, mu, logvar).  The reparameterization noise is `eps`
+        (tests feed both frameworks the same eps) or a draw from
+        `generator`, in mu's dtype (``reparameterize``)."""
         mu, logvar = self.encode(x, lyr, m)
-        std = torch.exp(0.5 * logvar)
-        if eps is None:
-            eps = torch.randn_like(std)
-        return self.decode(mu + eps * std), mu, logvar
+        return (self.decode(reparameterize(mu, logvar, eps, generator)),
+                mu, logvar)
+

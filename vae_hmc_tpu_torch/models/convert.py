@@ -1,6 +1,7 @@
 """Carry Flax weights across into the port's modules: ``ConvMMVAE``,
-``DenseVAE``, ``AE`` and ``MiniLM``; and the VAE and AE weights back into
-the Flax tree, for checkpoints in the JAX package's format.
+``DenseVAE``, ``AE`` and ``MiniLM``; and the VAE and AE weights, and
+Adam's moments of them, back into the Flax tree, for checkpoints in the
+JAX package's format (``flax_params``, ``module_tensors``).
 
 The inverse of ``vae_hmc_tpu.models.torch_port`` (linear, conv2d,
 conv_transpose2d and the NCHW-flatten seams), written here so the port
@@ -152,3 +153,25 @@ def minilm_state_dict(variables) -> Dict[str, torch.Tensor]:
             sd[f"layers.{i}.{name}.bias"] = _t(lp[name]["bias"])
         i += 1
     return sd
+
+
+def flax_params(model: torch.nn.Module,
+                tensors: Dict[str, torch.Tensor]) -> Params:
+    """Tensors keyed and shaped like `model`'s parameters (the weights, or
+    Adam's moments of them) -> the Flax ``params`` layout of the JAX
+    package's module.  Every mapping is a transpose, flip or reorder, so a
+    moment goes through the same one as its weight."""
+    from vae_hmc_tpu_torch.models.conv_mm_vae import ConvMMVAE
+    if isinstance(model, ConvMMVAE):
+        return conv_mm_vae_flax_params(tensors, model.enc_hw, model.channels)
+    return linear_flax_params(tensors)
+
+
+def module_tensors(model: torch.nn.Module,
+                   params: Params) -> Dict[str, torch.Tensor]:
+    """``flax_params`` run backwards: Flax ``params`` (numpy) -> tensors
+    keyed and shaped like `model`'s parameters."""
+    from vae_hmc_tpu_torch.models.conv_mm_vae import ConvMMVAE
+    if isinstance(model, ConvMMVAE):
+        return conv_mm_vae_state_dict(params, model.enc_hw, model.channels)
+    return linear_state_dict(params)

@@ -59,11 +59,28 @@ class DenseVAE(nn.Module):
         return self.out(h)
 
     def forward(self, x, c: Optional[torch.Tensor] = None,
-                eps: Optional[torch.Tensor] = None):
-        """-> (xhat, mu, logvar); `eps` injects the reparameterization noise
-        (tests feed both frameworks the same eps)."""
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """-> (xhat, mu, logvar).  The reparameterization noise is `eps`
+        (tests feed both frameworks the same eps) or a draw from
+        `generator`, in mu's dtype (``reparameterize``)."""
         mu, logvar = self.encode(x, c)
-        std = torch.exp(0.5 * logvar)
-        if eps is None:
-            eps = torch.randn_like(std)
-        return self.decode(mu + eps * std, c), mu, logvar
+        return (self.decode(reparameterize(mu, logvar, eps, generator), c),
+                mu, logvar)
+
+
+def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
+                   eps: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """mu + eps * exp(logvar / 2) in mu's dtype (bf16 under the trainer's
+    mixed precision, as ``vae_hmc_tpu/models/dense_vae.py:85-88`` draws
+    it).  eps is given, or drawn from `generator`; torch's global
+    generator is never used."""
+    std = torch.exp(0.5 * logvar)
+    if eps is None:
+        if generator is None:
+            raise ValueError("reparameterize needs eps or a generator")
+        eps = torch.randn(std.shape, generator=generator, dtype=mu.dtype,
+                          device=mu.device)
+    return mu + eps.to(device=mu.device, dtype=mu.dtype) * std

@@ -4,6 +4,7 @@ librosa stft semantics: center=True reflect padding, periodic Hann window
 of n_fft.  The rDFT is two plain fp32 matmuls against a cos/sin basis, as
 the JAX package computes it (``method="dft"``); they go to cuBLAS with TF32
 off (core.device), the analogue of the reference's ``Precision.HIGHEST``.
+``method="fft"`` takes ``torch.fft.rfft`` instead.
 
 (B, n_samples) in, (B, 1 + n_fft//2, n_frames) out: a view of a buffer
 whose rows are padded with zeros to a multiple of 4 frames (16 bytes), so
@@ -13,6 +14,7 @@ The values are those of the contiguous result.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -20,9 +22,12 @@ import torch
 import torch.nn.functional as F
 
 
+@functools.lru_cache(maxsize=None)
 def hann_window(n: int, device=None) -> torch.Tensor:
     """Periodic Hann (scipy.signal.get_window('hann', n, fftbins=True)),
-    computed in float64 and rounded once, as the JAX package does."""
+    computed in float64 and rounded once, as the JAX package does.  Made
+    once per (n, device): a spectrogram then copies nothing from the host,
+    so a CUDA graph can capture it."""
     k = torch.arange(n, dtype=torch.float64)
     w = 0.5 - 0.5 * torch.cos(2.0 * math.pi * k / n)
     return w.to(device=device, dtype=torch.float32)
@@ -47,8 +52,10 @@ def frame_signal(y: torch.Tensor, n_fft: int,
     return torch.cat([blocks[:, i:i + t, :] for i in range(r)], dim=2)
 
 
+@functools.lru_cache(maxsize=None)
 def dft_matrices(n_fft: int, device=None):
-    """(n_fft, F) cos and sin rDFT bases, F = n_fft//2 + 1.
+    """(n_fft, F) cos and sin rDFT bases, F = n_fft//2 + 1, made once per
+    (n_fft, device) as ``hann_window`` is.
 
     The angle is reduced mod n_fft in integer arithmetic before the float
     multiply (t*f <= n_fft^2/2 is exact), so cos/sin never see a large
@@ -63,12 +70,24 @@ def dft_matrices(n_fft: int, device=None):
 
 
 def power_spectrogram(y: torch.Tensor, n_fft: int = 2048,
-                      hop_length: int = 512,
-                      power: float = 2.0) -> torch.Tensor:
+                      hop_length: int = 512, power: float = 2.0,
+                      method: str = "dft") -> torch.Tensor:
     """(B, L) waveforms -> (B, 1 + n_fft//2, T) |STFT|^power, with the row
-    pitch padded to a multiple of 4 frames (``row_aligned``)."""
+    pitch padded to a multiple of 4 frames (``row_aligned``).
+
+    method="dft" (the default, which every tier uses): two fp32 matmuls
+    against the cos/sin basis.  method="fft": ``torch.fft.rfft`` (cuFFT on
+    the card), |X| raised to `power` as the JAX package's "fft" branch
+    does; the two agree to f32 roundoff."""
+    if method not in ("dft", "fft"):
+        raise ValueError(f"method must be 'dft' or 'fft', got {method!r}")
     frames = frame_signal(y, n_fft, hop_length)
     frames = frames * hann_window(n_fft, y.device)
+    if method == "fft":
+        mag = torch.fft.rfft(frames, n=n_fft, dim=-1).abs()     # (B, T, F)
+        if power != 1.0:
+            mag = mag ** power
+        return row_aligned(mag.transpose(1, 2))
     cos_m, sin_m = dft_matrices(n_fft, y.device)
     re = torch.matmul(frames, cos_m)                           # (B, T, F)
     im = torch.matmul(frames, sin_m)

@@ -179,7 +179,7 @@ def train_conv_mm(ws: Workspace, cfg: ConvMMVaeConfig = ConvMMVaeConfig(),
     the checkpoint's device -> host copy and file writes overlap the later
     stages; the thread waits on `artifact_gate` first, if given."""
     from vae_hmc_tpu_torch.models.api import train_conv_mm_vae
-    from vae_hmc_tpu_torch.models.convert import conv_mm_vae_flax_params
+    from vae_hmc_tpu_torch.models.convert import flax_params
 
     dev = resolve_device(device)
     if audio is not None:
@@ -200,11 +200,7 @@ def train_conv_mm(ws: Workspace, cfg: ConvMMVaeConfig = ConvMMVaeConfig(),
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     model, history, mu = train_conv_mm_vae(_to_nhwc(x, dev), lyr, mask, cfg,
-                                           device=dev)
-    if verbose:
-        for h in history:
-            print(f"epoch {h['epoch']}: loss {h['total']:.6f} recon "
-                  f"{h['recon']:.6f} kl {h['kl']:.6f}")
+                                           device=dev, verbose=verbose)
     log(f"train12/fit+export: {time.perf_counter() - t0:.1f}s")
     input_shape = ([x.shape[0], 1, x.shape[1], x.shape[2]] if x.ndim == 3
                    else list(x.shape))
@@ -219,8 +215,7 @@ def train_conv_mm(ws: Workspace, cfg: ConvMMVaeConfig = ConvMMVaeConfig(),
         if save_epoch_checkpoints:
             # the reference checkpoints every epoch (12:281-285); the final
             # epoch keeps the filename contract, with resumable metadata
-            params = conv_mm_vae_flax_params(model.state_dict(), model.enc_hw,
-                                             model.channels)
+            params = flax_params(model, model.state_dict())
             artifacts.save_checkpoint(
                 out_dir / f"ckpt_epoch_{cfg.epochs:03d}.pt",
                 {"params": params},

@@ -18,6 +18,7 @@ the vectors with sklearn's).
 from __future__ import annotations
 
 import re
+from collections import Counter
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -96,7 +97,17 @@ class TfidfVectorizer:
         self.vocabulary_ = {t: i for i, t in enumerate(terms)}
         self.idf_ = np.log((1.0 + n) / (1.0 + np.asarray(
             [df[t] for t in terms], dtype=np.float64))) + 1.0
-        x = np.zeros((n, len(terms)), dtype=np.float64)
+        return self._transform_counts(counts)
+
+    def transform(self, docs: Sequence[str]) -> np.ndarray:
+        """Vectors of `docs` over the fitted vocabulary and idf; terms
+        outside the vocabulary are dropped."""
+        return self._transform_counts(
+            [Counter(self._tokenize(d)) for d in docs])
+
+    def _transform_counts(self, counts: Sequence[Dict[str, int]]
+                          ) -> np.ndarray:
+        x = np.zeros((len(counts), len(self.vocabulary_)), dtype=np.float64)
         for i, c in enumerate(counts):
             for t, k in c.items():
                 j = self.vocabulary_.get(t)
