@@ -74,13 +74,48 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      float32 (with and without deterministic cuDNN) and in bf16; (c) the
      STFT's FFT method against its DFT method at (64, 1025, 1,292) and
      (128, 1025, 646), within 1e-5 of the peak power, both timed.
+ 10. the parallel path (``vae_hmc_tpu_torch/parallel``) on ranks spawned
+     on the one card (``torch.multiprocessing``, spawn; a ``file://`` store
+     in a temporary directory, a 120 s process-group timeout, a join
+     timeout; each rank returns its results and its own launch counts):
+     (a) NCCL, world size 1, mesh (1, 1): ``synth_features_sharded``
+     builds the 2,924 standardized (128, 646) rows through kernel 1, held
+     to ``build_logmel`` within 1e-4; ``dp_fit`` of the full-width
+     ConvMMVAE, 1 epoch under deterministic cuDNN, held to the
+     single-process ``fit`` of the same weights and streams within 1e-6
+     relative, and the same fit with cuDNN's default algorithms logged as
+     the history's roundoff spread; ``train_conv_mm_vae(mesh=)``, KMeans
+     restarts on its latents, and the dense and hard fits; (b) gloo with
+     CUDA tensors, 2 ranks, mesh (2, 1): each rank stages its 1,462 rows
+     (``stage_features_sharded``, kernel 1) and ``train_conv_mm_vae`` trains
+     data parallel; (c) gloo, 4 ranks, mesh (2, 2): the same data and
+     tensor parallel (the shard shapes checked), ``train_dense_vae``
+     (``DenseVaeConfig()``, (2924, 80)) and ``train_hard_vae``
+     (``HARD_CVAE``, 464 wide, 6-wide condition), 4 epochs each, against
+     (a)'s; (b) and (c) each end in one sweep cell (KMeans(k=6), the
+     silhouette from kernel 2's distances) on rank 0.  (a) also runs the
+     split witness: (b)'s step in one process, each batch's rows in the
+     two calls that (b)'s ranks make.  The conv history of (b) is held to
+     the witness within 5e-5 relative and 1e-6, those of (b) and (c) to
+     (a)'s, and (c)'s to the witness, within 5e-4 of the total (the
+     roundoff of the other split); the dense and hard ones within 5e-5
+     relative and 1e-6.  Every rank's trained replica must equal rank 0's
+     (parameter sums), and a planted fault, (b)'s fit with the gradient
+     all-reduce skipped, must give replicas that differ; its history's
+     gaps are logged.  The latents must be
+     (2924, 32), finite and the same on every rank, and KMeans restarts
+     on (a)'s latents (n_init 10, padded to 12 on 4 ranks; 12 on 1 and 2)
+     the same labels and inertia on 1, 2 and 4 ranks.  It logs ms a step,
+     all-reduce bytes a step and the peak device memory of each rank, and
+     kernel 1 and 2 launches by rank.
 Each tier runs with the launch counters reset just before and read just
 after, and fails unless its kernels were launched.  Phase 2 also holds
 kernel 1 in the MFCC mode and on silent and zero-tailed rows at phase 8's
 batches, and kernel 2 at (2924, 16), (2924, 80) and phase 8's shapes, to
 their plain versions.
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
+The third-to-last line is a JSON object with one entry per kernel (with
+``parallel_launches``, by phase 10 part and rank); the card's name and
+power limit follow it, and the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the port beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -89,6 +124,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1744,6 +1780,464 @@ def phase_stft_fft(dev) -> list:
     return rows
 
 
+PARALLEL_TIMEOUT_S = 120        # phase 10: process-group timeout
+PARALLEL_JOIN_S = 600           # phase 10: join timeout of one spawn
+P10_RESTARTS = 12               # phase 10: KMeans n_init 10 padded on 4 ranks
+
+
+def _p10_inputs(dev):
+    """Phase 10's inputs, made alike on every rank from one seed on the
+    card: the synthetic corpus, lyrics embeddings and mask, the easy
+    tier's (2924, 80) rows and the hard tier's HARD_CVAE rows (464 wide)
+    with their 6-wide one-hot condition."""
+    import torch
+    from vae_hmc_tpu_torch.pipelines.sources import SyntheticSource
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    lyr = torch.randn((MAIN_TRACKS, 384), generator=gen, device=dev)
+    mask = (torch.rand((MAIN_TRACKS, 1), generator=gen, device=dev)
+            < 0.9).float()
+    xd = torch.randn((MAIN_TRACKS, 80), generator=gen, device=dev)
+    xh = torch.randn((MAIN_TRACKS, 464), generator=gen, device=dev)
+    cond = torch.nn.functional.one_hot(torch.randint(
+        0, 6, (MAIN_TRACKS,), generator=gen, device=dev), 6).float()
+    return SyntheticSource.make(MAIN_TRACKS, seed=11), lyr, mask, xd, xh, cond
+
+
+def _p10_mesh(shape):
+    """This rank's mesh, deterministic cuDNN, and the first optimizer step
+    taken (it imports torch._dynamo, seconds that no timing should see)."""
+    import datetime
+    import torch
+    from vae_hmc_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cudnn.deterministic = True
+    mesh = make_mesh(shape=shape, device="cuda",
+                     timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
+    w = torch.nn.Parameter(torch.zeros(1, device=mesh.device))
+    w.grad = torch.zeros_like(w)
+    torch.optim.Adam([w]).step()
+    return mesh
+
+
+def _p10_timed(dev, fn):
+    """fn() between synchronizes, with this rank's launch, byte and peak
+    counters reset before -> (result, seconds, launches, bytes, peak)."""
+    import torch
+    from vae_hmc_tpu_torch.ops.kernels import build
+    from vae_hmc_tpu_torch.parallel import collectives
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launch_counts()
+    collectives.reset_byte_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, build.launch_counts(),
+            collectives.byte_counts(), torch.cuda.max_memory_allocated(dev))
+
+
+def _p10_dense_hard(mesh, xd, xh, cond) -> dict:
+    """The easy tier's DenseVaeConfig() and the hard tier's HARD_CVAE, 4
+    epochs each, on the mesh -> their histories."""
+    from vae_hmc_tpu_torch.core.config import HARD_CVAE, DenseVaeConfig
+    from vae_hmc_tpu_torch.models import api
+    from dataclasses import replace
+    _, dense, _ = api.train_dense_vae(xd, replace(DenseVaeConfig(), epochs=4),
+                                      mesh=mesh)
+    _, hard, _ = api.train_hard_vae(xh, replace(HARD_CVAE, epochs=4),
+                                    cond=cond, mesh=mesh)
+    return {"dense": dense, "hard": hard}
+
+
+def _p10_split_fit(model, arrays, cfg, n_parts: int) -> list:
+    """The step of a (n_parts, 1) mesh in one process, the witness of (b):
+    each batch's rows split by the mesh's row ranges, each part's forward
+    and backward run on its own (the per-call batch sizes of (b)'s ranks),
+    the gradients summed by accumulation, one Adam step; the noise,
+    permutation and loss are ``fit``'s.  -> the history of one epoch."""
+    import torch
+    from vae_hmc_tpu_torch.models.losses import elbo_loss_rows
+    from vae_hmc_tpu_torch.models.train import (_NOISE_STREAM, _PERM_STREAM,
+                                                _epoch_generator, _own_rows)
+    from vae_hmc_tpu_torch.parallel.mesh import Mesh
+    from vae_hmc_tpu_torch.parallel.multihost import process_row_range
+    dev = arrays[0].device
+    n, bsz = int(arrays[0].shape[0]), cfg.batch_size
+    perm = torch.randperm(n, generator=_epoch_generator(cfg.seed, 0,
+                                                        _PERM_STREAM))
+    noise = _epoch_generator(cfg.seed, 0, _NOISE_STREAM, dev)
+    parts = [process_row_range(n, mesh=Mesh(
+        shape={"data": n_parts, "model": 1}, rank=r)) for r in range(n_parts)]
+    rows = [_own_rows(perm, lo, hi, bsz, dev) for lo, hi in parts]
+    totals = [torch.zeros(3, device=dev) for _ in parts]
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate)
+    model.train()
+    for i in range(-(-n // bsz)):
+        b = min(bsz, n - i * bsz)
+        eps = torch.randn((b, model.latent_dim), generator=noise, device=dev)
+        opt.zero_grad(set_to_none=True)
+        for (lo, hi), part, tot in zip(parts, rows, totals):
+            local, pos = part(i)
+            if not len(local):
+                continue
+            batch = [a[lo:hi][local] for a in arrays]
+            xhat, mu, logvar = model(*batch, eps=eps.index_select(0, pos))
+            loss, aux = elbo_loss_rows(xhat, batch[0], mu, logvar, cfg.beta,
+                                       cfg.loss_reduction, b)
+            loss.backward()
+            tot += torch.stack([aux["total"], aux["recon"],
+                                aux["kl"]]).detach() * b
+        opt.step()
+    avg = (sum(totals) / n).cpu().tolist()
+    return [{"epoch": 1, "total": avg[0], "recon": avg[1], "kl": avg[2]}]
+
+
+def p10_world_one(rank: int) -> dict:
+    """Phase 10 (a), one rank under NCCL, mesh (1, 1): the medium corpus's
+    standardized log-mel by synth_features_sharded (kernel 1) against
+    build_logmel; dp_fit of the full-width ConvMMVAE, 1 epoch, against the
+    single-process fit of the same weights and streams; the same through
+    train_conv_mm_vae(mesh=) (history and latents, the reference of (b)
+    and (c)); KMeans restarts on its latents; the dense and hard fits."""
+    import torch
+    from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig, MelConfig
+    from vae_hmc_tpu_torch.models import api
+    from vae_hmc_tpu_torch.models.train import encode_in_batches, fit
+    from vae_hmc_tpu_torch.parallel.features_dp import synth_features_sharded
+    from vae_hmc_tpu_torch.parallel.mesh import conv_mm_param_sharding
+    from vae_hmc_tpu_torch.parallel.train_dp import (dp_fit,
+                                                     kmeans_restarts_sharded)
+    from vae_hmc_tpu_torch.pipelines.features import build_logmel
+    mesh = _p10_mesh((1, 1))
+    dev = mesh.device
+    source, lyr, mask, xd, xh, cond = _p10_inputs(dev)
+    mel = MelConfig()
+    x, feat_s, feat_k, _, _ = _p10_timed(dev, lambda: synth_features_sharded(
+        source, mel, mesh, device_batch=DEVICE_BATCH))
+    ref, _, _ = build_logmel(source, mel, device_batch=DEVICE_BATCH,
+                             device=dev)
+    feat_err = float((x - ref).abs().max())
+    del ref
+    x = x[..., None]
+    cfg = ConvMMVaeConfig(epochs=MAIN_EPOCHS)
+    kw = dict(epochs=cfg.epochs, batch_size=cfg.batch_size,
+              learning_rate=cfg.learning_rate, beta=cfg.beta,
+              reduction=cfg.loss_reduction, seed=cfg.seed)
+    model = api.build_conv_mm_vae(cfg, 128, 646, 384).to(dev)
+    dp, dp_s, dp_k, dp_b, dp_peak = _p10_timed(dev, lambda: dp_fit(
+        model, (x, lyr, mask), mesh, conv_mm_param_sharding(mesh, model),
+        **kw))
+    single, fit_s, _, _, _ = _p10_timed(dev, lambda: fit(
+        api.build_conv_mm_vae(cfg, 128, 646, 384).to(dev), (x, lyr, mask),
+        **kw))
+    torch.backends.cudnn.deterministic = False    # the history's roundoff
+    spread = fit(api.build_conv_mm_vae(cfg, 128, 646, 384).to(dev),
+                 (x, lyr, mask), **kw)
+    torch.backends.cudnn.deterministic = True
+    split = _p10_split_fit(api.build_conv_mm_vae(cfg, 128, 646, 384).to(dev),
+                           (x, lyr, mask), cfg, 2)
+    (_, history, mu), api_s, api_k, api_b, api_peak = _p10_timed(
+        dev, lambda: api.train_conv_mm_vae(x, lyr, mask, cfg, mesh=mesh))
+    model.eval()
+    with torch.no_grad():
+        mu_dp = encode_in_batches(lambda a, b, c: model.encode(a, b, c)[0],
+                                  (x, lyr, mask), batch_size=256)
+    labels, _, inertia = kmeans_restarts_sharded(mu, 6, P10_RESTARTS, mesh)
+    return {"backend": mesh.backend, "feature_err": feat_err,
+            "feature_shape": list(x.shape), "feature_s": feat_s,
+            "feature_launches": feat_k, "dp_history": dp.history,
+            "fit_history": single.history, "fit_s": fit_s,
+            "spread_history": spread.history, "split_history": split,
+            "dp_s": dp_s, "dp_bytes": dp_b,
+            "dp_peak": dp_peak, "dp_launches": dp_k,
+            "history": history, "api_s": api_s, "api_bytes": api_b,
+            "api_peak": api_peak, "api_launches": api_k,
+            "latents": mu.cpu().numpy(), "latents_dp_err": float(
+                (mu - mu_dp).abs().max()),
+            "labels": labels, "inertia": inertia,
+            **_p10_dense_hard(mesh, xd, xh, cond)}
+
+
+def _p10_digest(model) -> list:
+    """Each parameter's float64 sum and absolute sum: equal on two ranks
+    whose replicas are equal bit for bit, apart (almost surely) otherwise."""
+    import torch
+    with torch.no_grad():
+        return [[float(p.double().sum()), float(p.double().abs().sum())]
+                for p in model.parameters()]
+
+
+def _p10_fault_fit(staged, lyr, mask, cfg, mesh) -> list:
+    """A planted fault: the same data-parallel fit with the gradient
+    all-reduce skipped (each rank steps on its own rows' gradients; the
+    history's sums still reach every rank).  -> (its history, its
+    replica's digest), which the checks of (b) must refuse."""
+    from vae_hmc_tpu_torch.models import api
+    from vae_hmc_tpu_torch.parallel import collectives
+    real = collectives.all_reduce_grads
+    collectives.all_reduce_grads = lambda params, group=None: None
+    try:
+        model, history, _ = api.train_conv_mm_vae(staged, lyr, mask, cfg,
+                                                  mesh=mesh)
+    finally:
+        collectives.all_reduce_grads = real
+    return history, _p10_digest(model)
+
+
+def p10_ranks(rank: int, shape, latents_a) -> dict:
+    """Phase 10 (b) and (c), one rank of a gloo group on the card: stage
+    this rank's rows of the medium corpus (stage_features_sharded, kernel
+    1), train_conv_mm_vae(mesh=) at full width for 1 epoch, the shard
+    shapes of a (D, 2) mesh, KMeans restarts on (a)'s latents (and on this
+    run's, for the sweep cell), the dense and hard fits, and on rank 0 one
+    sweep cell's silhouette from kernel 2's distances."""
+    import torch
+    from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig, MelConfig
+    from vae_hmc_tpu_torch.metrics import internal
+    from vae_hmc_tpu_torch.models import api
+    from vae_hmc_tpu_torch.parallel.features_dp import synth_rows
+    from vae_hmc_tpu_torch.parallel.mesh import (conv_mm_param_sharding,
+                                                 gather_params, shard_params)
+    from vae_hmc_tpu_torch.parallel.multihost import stage_features_sharded
+    from vae_hmc_tpu_torch.parallel.train_dp import kmeans_restarts_sharded
+    mesh = _p10_mesh(tuple(shape))
+    dev = mesh.device
+    source, lyr, mask, xd, xh, cond = _p10_inputs(dev)
+    rows = synth_rows(source, MelConfig(), DEVICE_BATCH, "logmel", dev)
+    staged, feat_s, feat_k, _, _ = _p10_timed(dev, lambda: (
+        stage_features_sharded(lambda s, e: rows(s, e)[..., None],
+                               MAIN_TRACKS, mesh, batch=MAIN_TRACKS)))
+    cfg = ConvMMVaeConfig(epochs=MAIN_EPOCHS)
+    shards = {}
+    if mesh.shape["model"] > 1:
+        model = api.build_conv_mm_vae(cfg, 128, 646, 384).to(dev)
+        whole = {k: v.clone() for k, v in model.state_dict().items()}
+        shard_params(model, conv_mm_param_sharding(mesh, model), mesh)
+        shards = {k: list(v.shape) for k, v in model.state_dict().items()
+                  if k.startswith(("enc_fc.", "dec_fc2."))}
+        gather_params(model, mesh)
+        for k, v in model.state_dict().items():
+            if not torch.equal(v, whole[k]):
+                raise RuntimeError(f"{k} changed through shard and gather")
+        del model, whole
+    (model, history, mu), api_s, api_k, api_b, api_peak = _p10_timed(
+        dev, lambda: api.train_conv_mm_vae(staged, lyr, mask, cfg, mesh=mesh))
+    digest = _p10_digest(model)
+    del model
+    span = [staged.start, staged.stop]
+    fault = None
+    if mesh.shape == {"data": 2, "model": 1}:
+        fault = _p10_fault_fit(staged, lyr, mask, cfg, mesh)
+    del staged
+    # n_init 10 pads to P10_RESTARTS on 4 ranks; 2 ranks ask for those
+    n_init = 10 if mesh.size == 4 else P10_RESTARTS
+    labels_a, _, inertia_a = kmeans_restarts_sharded(latents_a, 6, n_init,
+                                                     mesh)
+    labels, _, _ = kmeans_restarts_sharded(mu, 6, 10, mesh)
+    sweep_k, sil = {}, None
+    if mesh.rank == 0:
+        from vae_hmc_tpu_torch.ops.kernels import build
+        build.reset_launch_counts()
+        sil = internal.silhouette_from_dists_masked(
+            internal.centered_euclidean_dists(mu), labels)
+        sweep_k = build.launch_counts()
+    return {"backend": mesh.backend, "mesh": dict(mesh.shape),
+            "rows": span, "digest": digest, "fault": fault,
+            "feature_s": feat_s, "feature_launches": feat_k,
+            "shards": shards, "history": history, "api_s": api_s,
+            "api_bytes": api_b, "api_peak": api_peak, "api_launches": api_k,
+            "latents": mu.cpu().numpy(), "labels_a": labels_a,
+            "inertia_a": inertia_a, "silhouette": sil,
+            "sweep_launches": sweep_k,
+            **_p10_dense_hard(mesh, xd, xh, cond)}
+
+
+def _hist_gaps(got, want, rtol: float, atol: float, of_total: float = 0.0):
+    """Two histories column by column -> (the largest absolute gap of each
+    column, the first gap past atol + rtol |want| + of_total |want's
+    total| or None)."""
+    if [h["epoch"] for h in got] != [h["epoch"] for h in want]:
+        return None, f"epochs {got} vs {want}"
+    gaps, bad = {k: 0.0 for k in ("total", "recon", "kl")}, None
+    for g, w in zip(got, want):
+        for k in gaps:
+            gap = abs(g[k] - w[k])
+            gaps[k] = max(gaps[k], gap)
+            if bad is None and not gap <= atol + rtol * abs(w[k]) + \
+                    of_total * abs(w["total"]):
+                bad = (f"{k} {g[k]!r} vs {w[k]!r} (rtol {rtol}, atol "
+                       f"{atol}, {of_total} of the total)")
+    return gaps, bad
+
+
+def _hist_close(what: str, got, want, rtol: float, atol: float,
+                of_total: float = 0.0) -> dict:
+    """Fail unless two histories agree (``_hist_gaps``); -> the largest
+    absolute gap of each column."""
+    gaps, bad = _hist_gaps(got, want, rtol, atol, of_total)
+    if bad is not None:
+        fail(f"{what}: {bad}")
+    log(f"  {what}: histories agree, largest abs gaps {json.dumps(gaps)} "
+        f"(rtol {rtol}, atol {atol}, {of_total} of the total)")
+    return gaps
+
+
+def phase_parallel() -> dict:
+    """Phase 10: the parallel path on spawned ranks of the one card, (a)
+    NCCL at world size 1, (b) gloo with CUDA tensors on 2 ranks, mesh
+    (2, 1), (c) gloo on 4 ranks, mesh (2, 2); each rank's results and
+    kernel launch counts come back to this process."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT))
+    from tests.torch_dist_workers import run_ranks
+    steps = -(-MAIN_TRACKS // 64)
+    out = {}
+
+    def spawn(what, world, backend, fn, *args):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            res = run_ranks(fn, world, tmp, *args, backend=backend,
+                            device="cuda", timeout_s=PARALLEL_TIMEOUT_S,
+                            join_s=PARALLEL_JOIN_S)
+            log(f"  {what}: {world} rank(s) ({backend}) in "
+                f"{time.perf_counter() - t0:.1f} s wall")
+        return res
+
+    log("phase 10 (a): NCCL, world size 1, mesh (1, 1)")
+    (a,) = spawn("(a)", 1, "nccl", p10_world_one)
+    if a["backend"] != "nccl":
+        fail(f"phase 10 (a) ran on {a['backend']}, not NCCL")
+    log(f"  synth_features_sharded {a['feature_shape']} in "
+        f"{a['feature_s']:.3f} s, kernels {json.dumps(a['feature_launches'])}"
+        f"; max |sharded - build_logmel| {a['feature_err']:.3e}")
+    if not a["feature_err"] <= 1e-4:
+        fail(f"phase 10 (a): sharded features off build_logmel by "
+             f"{a['feature_err']:.3e} (> 1e-4)")
+    _hist_close("(a) dp_fit vs fit", a["dp_history"], a["fit_history"],
+                1e-6, 0.0)
+    gaps = {k: max(abs(g[k] - w[k]) for g, w in zip(
+        a["spread_history"], a["fit_history"])) for k in ("total", "recon",
+                                                          "kl")}
+    log(f"  (a) roundoff spread of the history: fit with cuDNN's default "
+        f"(nondeterministic) algorithms against deterministic cuDNN, "
+        f"largest abs gaps {json.dumps(gaps)}; fit {a['fit_history']}")
+    out["spread"] = gaps
+    gaps = {k: abs(a["split_history"][0][k] - a["history"][0][k])
+            for k in ("total", "recon", "kl")}
+    log(f"  (a) the split witness (each batch's rows in the two calls of "
+        f"(b)'s ranks, one process) against (a): abs gaps "
+        f"{json.dumps(gaps)}; witness {a['split_history']}")
+    _hist_close("(a) train_conv_mm_vae(mesh) vs dp_fit", a["history"],
+                a["dp_history"], 1e-6, 0.0)
+    log(f"  (a) dp_fit {1e3 * a['dp_s'] / steps:.2f} ms a step ({steps} "
+        f"steps, deterministic cuDNN; the single-process fit "
+        f"{1e3 * a['fit_s'] / steps:.2f}), all-reduce "
+        f"{a['dp_bytes']['all_reduce'] / steps / 1e6:.1f} MB a step, peak "
+        f"{a['dp_peak'] / 2**30:.3f} GiB; train_conv_mm_vae (fit and "
+        f"export) {1e3 * a['api_s'] / steps:.2f} ms a step; latents "
+        f"{a['latents'].shape}, |api - dp_fit| {a['latents_dp_err']:.3e}")
+    out["a"] = a
+
+    for part, world, shape in (("b", 2, (2, 1)), ("c", 4, (2, 2))):
+        log(f"phase 10 ({part}): gloo with CUDA tensors, {world} ranks on "
+            f"the one card, mesh {shape}")
+        ranks = spawn(f"({part})", world, "gloo", p10_ranks, shape,
+                      a["latents"])
+        for rank, r in enumerate(ranks):
+            k1 = r["feature_launches"]["mel_db_standardize"]
+            log(f"  rank {rank}: staged rows {r['rows']} in "
+                f"{r['feature_s']:.3f} s, "
+                f"kernel 1 {k1} launch(es); train_conv_mm_vae "
+                f"{1e3 * r['api_s'] / steps:.2f} ms a step (fit and export),"
+                f" all-reduce {r['api_bytes']['all_reduce'] / steps / 1e6:.1f}"
+                f" MB a step, peak {r['api_peak'] / 2**30:.3f} GiB")
+            if k1 <= 0:
+                fail(f"phase 10 ({part}): kernel 1 not launched on rank "
+                     f"{rank}")
+            if r["history"] != ranks[0]["history"]:
+                fail(f"phase 10 ({part}): rank {rank}'s history differs")
+            if not np.array_equal(r["latents"], ranks[0]["latents"]):
+                fail(f"phase 10 ({part}): rank {rank}'s latents differ")
+            if r["digest"] != ranks[0]["digest"]:
+                fail(f"phase 10 ({part}): rank {rank}'s trained replica "
+                     "differs from rank 0's")
+            if not np.array_equal(r["labels_a"], a["labels"]) or \
+                    r["inertia_a"] != a["inertia"]:
+                fail(f"phase 10 ({part}): KMeans restarts on rank {rank} "
+                     f"differ from world size 1 (inertia {r['inertia_a']} "
+                     f"vs {a['inertia']})")
+        r0 = ranks[0]
+        if r0["latents"].shape != (MAIN_TRACKS, 32) or \
+                not np.isfinite(r0["latents"]).all():
+            fail(f"phase 10 ({part}): latents {r0['latents'].shape} or "
+                 "non-finite")
+        # (a) runs each batch in one call, (b) and (c) in a call a rank on
+        # its rows; the split witness runs (b)'s calls in one process.  The
+        # data-parallel step is held to the witness at 5e-5 and to (a)
+        # within 5e-4 of the total, the roundoff of the other split
+        # (the spread logged in (a)); (c)'s tensor-parallel sums add theirs.
+        r0["gaps"] = _hist_close(f"({part}) conv vs (a)", r0["history"],
+                                 a["history"], 5e-5, 1e-6, of_total=5e-4)
+        witness = ((5e-5, 1e-6, 0.0) if part == "b"
+                   else (5e-5, 1e-6, 5e-4))
+        r0["witness_gaps"] = _hist_close(
+            f"({part}) conv vs the split witness", r0["history"],
+            a["split_history"], *witness)
+        log(f"  ({part}) trained replicas equal on every rank (parameter "
+            f"sums)")
+        if part == "b":
+            fault, _ = r0["fault"]
+            if all(r["fault"][1] == r0["fault"][1] for r in ranks):
+                fail("phase 10 (b): the replicas of a fit without the "
+                     "gradient all-reduce pass as equal")
+            log("  (b) planted fault (gradient all-reduce skipped) refused: "
+                "the replicas differ")
+            r0["fault_gaps"] = {}
+            for what, want, tol in (("the split witness", a["split_history"],
+                                     witness),
+                                    ("(a)", a["history"], (5e-5, 1e-6, 5e-4))):
+                gaps, bad = _hist_gaps(fault, want, *tol)
+                r0["fault_gaps"][what] = gaps
+                log(f"  (b) planted fault's history against {what}: "
+                    f"{'refused' if bad else 'passes'}, largest abs gaps "
+                    f"{json.dumps(gaps)}")
+        log(f"  ({part}) KMeans(k=6) restarts on (a)'s latents: labels and "
+            f"inertia {r0['inertia_a']:.6f} as at world size 1")
+        if part == "c":
+            want = {"enc_fc.weight": [256, 82944], "enc_fc.bias": [256],
+                    "dec_fc2.weight": [82944, 256], "dec_fc2.bias": [82944]}
+            for rank, r in enumerate(ranks):
+                if r["shards"] != want:
+                    fail(f"phase 10 (c): rank {rank} shards {r['shards']}")
+            log(f"  (c) shards on every rank: {json.dumps(want)}")
+            for name in ("dense", "hard"):
+                _hist_close(f"(c) {name} vs (a)", r0[name], a[name], 5e-5,
+                            1e-6)
+        sil = r0["silhouette"]
+        if not (math.isfinite(sil) and -1.0 <= sil <= 1.0):
+            fail(f"phase 10 ({part}): sweep cell silhouette {sil}")
+        if r0["sweep_launches"]["pairwise_dists"] <= 0:
+            fail(f"phase 10 ({part}): kernel 2 not launched in the sweep "
+                 "cell")
+        log(f"  ({part}) sweep cell on rank 0: KMeans(k=6) silhouette "
+            f"{sil:.5f} from kernel 2's distances "
+            f"({r0['sweep_launches']['pairwise_dists']} launch(es))")
+        out[part] = ranks
+    return out
+
+
+def parallel_launches(p10: dict, name: str) -> dict:
+    """A kernel's launches by rank in phase 10's paths: (a) features, dp_fit
+    and train_conv_mm_vae; (b) and (c) staging, train_conv_mm_vae and the
+    sweep cell on rank 0."""
+    a = p10["a"]
+    return {"a": [a["feature_launches"][name] + a["dp_launches"][name]
+                  + a["api_launches"][name]],
+            **{part: [r["feature_launches"][name] + r["api_launches"][name]
+                      + r["sweep_launches"].get(name, 0) for r in p10[part]]
+               for part in ("b", "c")}}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1777,6 +2271,8 @@ def main() -> None:
     phase_resume_on_card(dev)
     torch.cuda.empty_cache()
     phase_stft_fft(dev)
+    torch.cuda.empty_cache()
+    p10 = phase_parallel()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sweep_launches"] = sweep["launches"][k["name"]]
@@ -1790,6 +2286,7 @@ def main() -> None:
             "synthetic_audio": files["synthetic_audio"]["launches"][
                 k["name"]]}
         k["fast_launches"] = fast["launches"][k["name"]]
+        k["parallel_launches"] = parallel_launches(p10, k["name"])
     log(f"done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -559,3 +559,69 @@ def test_dense_resume_on_gpu_bit_for_bit(gpu, tmp_path):
     for (name, a), b in zip(straight.state_dict().items(),
                             resumed.state_dict().values()):
         assert torch.equal(a, b), name
+
+
+def _dp_case():
+    """A DenseVAE (24 -> 32 -> 32 -> 6, 50 rows at batch 16, 3 epochs) as a
+    job of tests/torch_dist_workers.fit_job, seeded weights."""
+    from tests.torch_dist_workers import build_model
+    spec = ("dense", (24, (32, 32), 6, 0))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        model = build_model(spec)
+    return dict(model=spec, state={k: v.numpy() for k, v in
+                                   model.state_dict().items()},
+                arrays=[np.random.default_rng(0).standard_normal(
+                    (50, 24)).astype(np.float32)],
+                kw=dict(epochs=3, batch_size=16, learning_rate=1e-3, seed=5))
+
+
+def _fit_on_one_card(job, gpu):
+    from tests.torch_dist_workers import build_model
+    from vae_hmc_tpu_torch.core.device import resolve_device
+    from vae_hmc_tpu_torch.models.train import fit
+    resolve_device(gpu)
+    model = build_model(job["model"])
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in job["state"].items()})
+    model.to(gpu)
+    return fit(model, [torch.from_numpy(a).to(gpu) for a in job["arrays"]],
+               **job["kw"]).history
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_dp_fit_on_the_card_matches_fit(gpu, tmp_path, world, backend):
+    """dp_fit on spawned ranks of one card (NCCL at world size 1, the
+    production backend; gloo with CUDA tensors on 2 ranks, data parallel)
+    against fit in this process on the card: histories within 1e-6
+    relative (the order of reduction), every rank the same."""
+    from tests.torch_dist_workers import run_jobs, run_ranks
+    job = _dp_case()
+    out = run_ranks(run_jobs, world, tmp_path, {"fit": ("fit_job", dict(
+        job, mesh_shape=(world, 1), device="cuda"))}, backend=backend,
+        device="cuda", timeout_s=60.0, join_s=300.0)
+    ref = _fit_on_one_card(job, gpu)
+    for rank in out:
+        got = rank["fit"]["history"]
+        assert got == out[0]["fit"]["history"]
+        for g, w in zip(got, ref):
+            for k in ("total", "recon", "kl"):
+                assert abs(g[k] - w[k]) <= 1e-6 * abs(w[k]) + 1e-7, (g, w)
+
+
+def test_logmel_kernel_sharded_on_two_ranks(gpu, tmp_path):
+    """Kernel 1 through logmel_batch_sharded on 2 gloo ranks of the card
+    (7 rows: 4 on rank 0, 3 and a padding row on rank 1): each rank
+    launches it once and every rank's whole result is within phase 2's
+    raw-dB 1e-3 of the plain version."""
+    from tests.torch_dist_workers import run_jobs, run_ranks
+    cfg = dict(duration_s=1.0, n_mels=128)
+    y = np.random.default_rng(5).normal(0, 0.1, (7, 22050)).astype(
+        np.float32)
+    out = run_ranks(run_jobs, 2, tmp_path, {"k1": ("logmel_kernel_job", dict(
+        y=y, mel_kw=cfg))}, backend="gloo", device="cuda", timeout_s=60.0,
+        join_s=300.0)
+    for rank in out:
+        assert rank["k1"]["shape"] == (7, 128, 44)
+        assert rank["k1"]["launches"] == 1
+        assert rank["k1"]["max_abs_err"] <= 1e-3

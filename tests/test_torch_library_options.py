@@ -7,6 +7,7 @@ JAX package's FFT and of the port's DFT (f32 roundoff of two transforms);
 NMI within 1e-12 (float64 in both); TF-IDF within 1e-12 (the same float64
 arithmetic, rounded to float32 once); presets exactly.
 """
+import dataclasses
 import json
 
 import jax.numpy as jnp
@@ -130,6 +131,17 @@ def test_preset_equals_jax(name):
     ours, ref = getattr(config, name), getattr(jconfig, name)
     assert type(ours).__name__ == type(ref).__name__
     assert config.asdict(ours) == jconfig.asdict(ref)
+
+
+def test_parallel_config_equals_jax(tmp_path):
+    ours, ref = config.ParallelConfig(), jconfig.ParallelConfig()
+    assert [f.name for f in dataclasses.fields(ours)] == \
+        [f.name for f in dataclasses.fields(ref)]
+    assert config.asdict(ours) == jconfig.asdict(ref)
+    config.to_json(ours, tmp_path / "ours.json")
+    jconfig.to_json(ref, tmp_path / "ref.json")
+    assert (tmp_path / "ours.json").read_bytes() == \
+        (tmp_path / "ref.json").read_bytes()
 
 
 def test_to_json_round_trip_and_bytes(tmp_path):

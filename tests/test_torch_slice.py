@@ -213,7 +213,9 @@ def test_port_imports_no_jax():
                  "viz.projections", "viz.plots", "core.goldens",
                  "core.profiling", "pipelines.medium", "cli", "io.audio",
                  "io.native", "io.staging", "core.manifest",
-                 "pipelines.acquisition", "pipelines.parity"):
+                 "pipelines.acquisition", "pipelines.parity",
+                 "parallel.collectives", "parallel.mesh", "parallel.train_dp",
+                 "parallel.features_dp", "parallel.multihost"):
         assert f"vae_hmc_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

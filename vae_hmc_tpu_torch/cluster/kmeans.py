@@ -86,17 +86,15 @@ def _update(x, centers, labels, d2):
     return torch.where(empty[:, :, None], donor, new)
 
 
-def kmeans(x, cfg: KMeansConfig = KMeansConfig(), device="cuda") -> KMeansResult:
-    dev = resolve_device(device)
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
-    k, n_init = cfg.n_clusters, cfg.n_init
-    tol_scaled = cfg.tol * torch.mean(torch.var(x, dim=0, correction=0))
-    centers = _kmeanspp_init(x, k, n_init, gen)
-    done = torch.zeros(n_init, dtype=torch.bool, device=dev)
-    n_iter = torch.zeros(n_init, dtype=torch.int64, device=dev)
-    for _ in range(cfg.max_iter):
+def _lloyd(x: torch.Tensor, centers: torch.Tensor, max_iter: int,
+           tol_scaled: torch.Tensor):
+    """Lloyd iterations of R restarts at once from `centers` (R, k, d); a
+    restart freezes once its squared centre shift is <= tol_scaled.
+    -> (labels (R, N), centers, inertia (R,), n_iter (R,))."""
+    n_init = centers.shape[0]
+    done = torch.zeros(n_init, dtype=torch.bool, device=x.device)
+    n_iter = torch.zeros(n_init, dtype=torch.int64, device=x.device)
+    for _ in range(max_iter):
         labels, d2 = _assign(x, centers)
         new = _update(x, centers, labels, d2)
         shift2 = torch.sum((new - centers) ** 2, dim=(1, 2))
@@ -107,6 +105,22 @@ def kmeans(x, cfg: KMeansConfig = KMeansConfig(), device="cuda") -> KMeansResult
             break
     labels, d2 = _assign(x, centers)
     inertia = torch.gather(d2, 2, labels[:, :, None])[:, :, 0].sum(dim=1)
+    return labels, centers, inertia, n_iter
+
+
+def tol_scaled(x: torch.Tensor, tol: float) -> torch.Tensor:
+    """sklearn's tolerance: tol x the mean per-feature variance of X."""
+    return tol * torch.mean(torch.var(x, dim=0, correction=0))
+
+
+def kmeans(x, cfg: KMeansConfig = KMeansConfig(), device="cuda") -> KMeansResult:
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    centers = _kmeanspp_init(x, cfg.n_clusters, cfg.n_init, gen)
+    labels, centers, inertia, n_iter = _lloyd(x, centers, cfg.max_iter,
+                                              tol_scaled(x, cfg.tol))
     best = int(torch.argmin(inertia))
     return KMeansResult(
         labels=labels[best].cpu().numpy().astype(np.int32),

@@ -8,8 +8,9 @@ Copies of ``vae_hmc_tpu.core.config`` ``Workspace``, ``MelConfig``
 (``KMEANS_EASY``, ``KMEANS_HARD``), ``SweepConfig`` (``SWEEP_MEDIUM``),
 ``TextEmbedConfig`` (``TEXT_MEDIUM``, ``TEXT_HARD``), ``TsneConfig``
 (``TSNE_DEFAULT``), ``UmapConfig`` (``UMAP_EASY``, ``UMAP_HARD``),
-``asdict`` and ``to_json`` with their reference citations, so the port never imports the JAX package.  Field
-values are identical; the tests compare them.
+``ParallelConfig``, ``asdict`` and ``to_json`` with their reference
+citations, so the port never imports the JAX package.  Field values are
+identical; the tests compare them.
 """
 from __future__ import annotations
 
@@ -277,3 +278,19 @@ class UmapConfig:
 TSNE_DEFAULT = TsneConfig()
 UMAP_EASY = UmapConfig()
 UMAP_HARD = UmapConfig(n_neighbors=20, min_dist=0.15)
+
+
+# ---------------------------------------------------------------------------
+# Parallelism
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The JAX package's device mesh layout, copied field for field (its
+    'restarts' axis names the JAX package's own mesh).  Nothing in the port
+    reads it: the port's mesh (``parallel/mesh``) is ('data', 'model')."""
+
+    data_axis: str = "data"
+    restart_axis: str = "restarts"
+    mesh_shape: Optional[Tuple[int, ...]] = None  # None -> (n_devices,)

@@ -18,6 +18,7 @@ class AE(nn.Module):
                  latent_dim: int = 16):
         super().__init__()
         h, z = hidden_dim, latent_dim
+        self.latent_dim = latent_dim
         self.e1 = nn.Linear(input_dim, h)
         self.e2 = nn.Linear(h, h)
         self.e3 = nn.Linear(h, z)

@@ -10,6 +10,14 @@ exact RNG parity is impossible).  `model`, `perms` and `eps_fn` are test
 hooks: carried-over weights and injected randomness.  The JAX package's
 ``prepare_*`` (AOT-compiled trainers built ahead from shapes) have no
 counterpart: nothing here compiles.
+
+Pass `mesh=` (``parallel.mesh.make_mesh`` / ``multihost.global_mesh``) to
+train on every rank of a process group: each rank passes the full arrays
+(or its ``ShardedRows``), as the JAX API takes them, and moves only its own
+rows to the mesh's device (``fit`` on the mesh, as ``dp_fit``); the conv
+model also tensor-shards its two giant FC layers over 'model'
+(``conv_mm_param_sharding``).  The latent export encodes each rank's rows
+and gathers them, so every rank returns the full (N, latent) latents.
 """
 from __future__ import annotations
 
@@ -25,6 +33,9 @@ from vae_hmc_tpu_torch.models.ae import AE
 from vae_hmc_tpu_torch.models.conv_mm_vae import ConvMMVAE
 from vae_hmc_tpu_torch.models.dense_vae import DenseVAE
 from vae_hmc_tpu_torch.models.train import encode_in_batches, fit
+from vae_hmc_tpu_torch.parallel import collectives
+from vae_hmc_tpu_torch.parallel.mesh import conv_mm_param_sharding
+from vae_hmc_tpu_torch.parallel.multihost import ShardedRows, shard_rows
 
 
 def build_conv_mm_vae(cfg: ConvMMVaeConfig, n_mels: int, n_frames: int,
@@ -50,85 +61,121 @@ def train_conv_mm_vae(x, lyr, mask, cfg: ConvMMVaeConfig, device="cuda",
                       model: Optional[ConvMMVAE] = None,
                       perms: Optional[Sequence[np.ndarray]] = None,
                       eps_fn: Optional[Callable] = None,
-                      verbose: bool = False):
+                      verbose: bool = False, mesh=None):
     """x: (N, n_mels, T, 1) standardized log-mel; lyr: (N, 384) lyrics
     embeddings (zeros when missing); mask: (N,) or (N, 1) presence gate.
-    Arrays may be numpy or tensors; they move to `device`.  Training runs
-    in ``cfg.compute_dtype`` ("float32", or "bfloat16" mixed precision);
-    the latent export in float32, as the JAX package's.  `model`, `perms`
-    and `eps_fn` are test hooks (carried-over weights, injected
-    randomness).  -> (model, history, mu (N, latent) on `device`)."""
-    dev = resolve_device(device)
-    arrays = (torch.as_tensor(x, dtype=torch.float32, device=dev),
-              torch.as_tensor(lyr, dtype=torch.float32, device=dev),
-              torch.as_tensor(mask, dtype=torch.float32,
-                              device=dev).reshape(-1, 1))
+    Arrays may be numpy or tensors; they move to `device` (on a mesh: this
+    rank's rows to the mesh's device; x may be ``ShardedRows``).  Training
+    runs in ``cfg.compute_dtype`` ("float32", or "bfloat16" mixed
+    precision); the latent export in float32, as the JAX package's.
+    `model`, `perms` and `eps_fn` are test hooks (carried-over weights,
+    injected randomness).  -> (model, history, mu (N, latent) on the
+    device)."""
+    dev, arrays, span = _stage(mesh, device, x, lyr, mask)
+    arrays[2] = arrays[2].reshape(-1, 1)
     if model is None:
         model = build_conv_mm_vae(cfg, arrays[0].shape[1], arrays[0].shape[2],
                                   arrays[1].shape[1])
     model = model.to(dev)
-    res = fit(model, arrays, epochs=cfg.epochs, batch_size=cfg.batch_size,
-              learning_rate=cfg.learning_rate, beta=cfg.beta,
-              reduction=cfg.loss_reduction, seed=cfg.seed, verbose=verbose,
-              compute_dtype=cfg.compute_dtype, perms=perms, eps_fn=eps_fn)
+    res = _fit(model, arrays, span, mesh, conv_mm_param_sharding,
+               epochs=cfg.epochs, batch_size=cfg.batch_size,
+               learning_rate=cfg.learning_rate, beta=cfg.beta,
+               reduction=cfg.loss_reduction, seed=cfg.seed, verbose=verbose,
+               compute_dtype=cfg.compute_dtype, perms=perms, eps_fn=eps_fn)
     model.eval()
-    mu = encode_in_batches(lambda xb, lb, mb: model.encode(xb, lb, mb)[0],
-                           arrays, batch_size=256)
+    mu = _export(lambda xb, lb, mb: model.encode(xb, lb, mb)[0], arrays,
+                 model.latent_dim, mesh, span, batch_size=256)
     return model, res.history, mu
 
 
-def _rows(x, dev) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+def _stage(mesh, device, *arrays):
+    """-> (device, float32 tensors, span (start, stop, N)): the whole
+    arrays on `device`, or on a mesh this rank's rows [start, stop) on its
+    device (``shard_rows``; x may be ShardedRows already)."""
+    if mesh is None:
+        dev = resolve_device(device)
+        n = int(arrays[0].shape[0])
+        return dev, [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                     for a in arrays], (0, n, n)
+    n = (arrays[0].n_global if isinstance(arrays[0], ShardedRows)
+         else int(arrays[0].shape[0]))
+    staged = [shard_rows(a, mesh, n) for a in arrays]
+    return (mesh.device, [r.local.to(torch.float32) for r in staged],
+            (staged[0].start, staged[0].stop, n))
+
+
+def _fit(model, arrays, span, mesh, sharding=None, **kw):
+    """``fit`` of `model` on this rank's tensors: as they are, or on a mesh
+    as ShardedRows, with the sharding plan `sharding(mesh, model)`."""
+    if mesh is not None:
+        arrays = [ShardedRows(t, *span) for t in arrays]
+        kw.update(mesh=mesh, n_rows=span[2], param_shardings=(
+            None if sharding is None else sharding(mesh, model)))
+    return fit(model, arrays, **kw)
+
+
+def _export(encode_fn: Callable, arrays, latent_dim: int, mesh, span,
+            batch_size: int = 512) -> torch.Tensor:
+    """Posterior means of every row: on a mesh each rank encodes its own
+    rows and the ranges are gathered over 'data' (every rank gets all N)."""
+    if mesh is None:
+        return encode_in_batches(encode_fn, arrays, batch_size=batch_size)
+    start, stop, n = span
+    local = (encode_in_batches(encode_fn, arrays, batch_size=batch_size)
+             if stop > start else torch.zeros((0, latent_dim),
+                                              device=mesh.device))
+    return collectives.all_gather_rows(local, start, n, mesh.data_group)
 
 
 def train_dense_vae(x, cfg: DenseVaeConfig, device="cuda",
                     model: Optional[DenseVAE] = None,
                     perms: Optional[Sequence[np.ndarray]] = None,
-                    eps_fn: Optional[Callable] = None):
+                    eps_fn: Optional[Callable] = None, mesh=None):
     """Easy-tier basic VAE (reference scripts/06): x is the standardized
-    (N, 80) MFCC-stats matrix (numpy or a tensor).
-    -> (model, history, mu (N, latent) on `device`)."""
-    dev = resolve_device(device)
-    xt = _rows(x, dev)
+    (N, 80) MFCC-stats matrix (numpy or a tensor; on a mesh, see the
+    module's docstring).  -> (model, history, mu (N, latent) on the
+    device)."""
+    dev, arrays, span = _stage(mesh, device, x)
     if model is None:
         model = _seeded(cfg.seed, lambda: DenseVAE(
-            xt.shape[1], tuple(cfg.hidden_dims), cfg.latent_dim))
+            arrays[0].shape[1], tuple(cfg.hidden_dims), cfg.latent_dim))
     model = model.to(dev)
-    res = fit(model, (xt,), epochs=cfg.epochs, batch_size=cfg.batch_size,
-              learning_rate=cfg.learning_rate, beta=cfg.beta,
-              reduction=cfg.loss_reduction, seed=cfg.seed, perms=perms,
-              eps_fn=eps_fn)
+    res = _fit(model, arrays, span, mesh, epochs=cfg.epochs,
+               batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
+               beta=cfg.beta, reduction=cfg.loss_reduction, seed=cfg.seed,
+               perms=perms, eps_fn=eps_fn)
     model.eval()
-    mu = encode_in_batches(lambda xb: model.encode(xb)[0], (xt,))
+    mu = _export(lambda xb: model.encode(xb)[0], arrays, model.latent_dim,
+                 mesh, span)
     return model, res.history, mu
 
 
 def train_hard_vae(x, cfg: HardVaeConfig, cond=None, device="cuda",
                    model: Optional[DenseVAE] = None,
                    perms: Optional[Sequence[np.ndarray]] = None,
-                   eps_fn: Optional[Callable] = None):
+                   eps_fn: Optional[Callable] = None, mesh=None):
     """Hard-tier Beta-VAE / CVAE (reference scripts/19): x is the
     early-fused (N, D) feature matrix (one-hots already appended where the
     config asks, 19:174-177); `cond` the CVAE's conditioning one-hot
-    (19:180-189), used only when cfg.use_cvae.
-    -> (model, history, mu (N, latent) on `device`)."""
-    dev = resolve_device(device)
-    arrays = [_rows(x, dev)]
-    if cond is not None and cfg.use_cvae:
-        arrays.append(_rows(cond, dev))
+    (19:180-189), used only when cfg.use_cvae.  On a mesh, see the
+    module's docstring.  -> (model, history, mu (N, latent) on the
+    device)."""
+    inputs = (x,) if cond is None or not cfg.use_cvae else (x, cond)
+    dev, arrays, span = _stage(mesh, device, *inputs)
     cond_dim = int(arrays[1].shape[1]) if len(arrays) > 1 else 0
     if model is None:
         model = _seeded(cfg.seed, lambda: DenseVAE(
             arrays[0].shape[1], (cfg.hidden_dim, cfg.hidden_dim),
             cfg.latent_dim, cond_dim))
     model = model.to(dev)
-    res = fit(model, arrays, epochs=cfg.epochs, batch_size=cfg.batch_size,
-              learning_rate=cfg.learning_rate, beta=cfg.beta,
-              reduction=cfg.loss_reduction, seed=cfg.seed,
-              kl_anneal_epochs=cfg.kl_anneal_epochs, perms=perms,
-              eps_fn=eps_fn)
+    res = _fit(model, arrays, span, mesh, epochs=cfg.epochs,
+               batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
+               beta=cfg.beta, reduction=cfg.loss_reduction, seed=cfg.seed,
+               kl_anneal_epochs=cfg.kl_anneal_epochs, perms=perms,
+               eps_fn=eps_fn)
     model.eval()
-    mu = encode_in_batches(lambda *b: model.encode(*b)[0], arrays)
+    mu = _export(lambda *b: model.encode(*b)[0], arrays, model.latent_dim,
+                 mesh, span)
     return model, res.history, mu
 
 
@@ -137,7 +184,7 @@ def train_ae(x, cfg: AeConfig, device="cuda", model: Optional[AE] = None,
     """Deterministic AE baseline (reference scripts/22:139-171): MSE mean,
     no KL.  -> (model, history, z (N, latent) on `device`)."""
     dev = resolve_device(device)
-    xt = _rows(x, dev)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
     if model is None:
         model = _seeded(cfg.seed, lambda: AE(xt.shape[1], cfg.hidden_dim,
                                              cfg.latent_dim))

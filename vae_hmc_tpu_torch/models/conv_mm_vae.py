@@ -42,6 +42,7 @@ class ConvMMVAE(nn.Module):
                  lyrics_proj_dim: int = 128):
         super().__init__()
         self.n_mels, self.n_frames = n_mels, n_frames
+        self.latent_dim = latent_dim
         self.channels = tuple(channels)
         self.enc_hw = conv_tower_shape(n_mels, n_frames, len(channels))
         ins = (1,) + self.channels[:-1]
