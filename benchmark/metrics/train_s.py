@@ -1,0 +1,7 @@
+"""Seconds of a job's `train` stage, the mean over the traced window's jobs
+(each stage ends in a synchronize)."""
+from benchmark.readings import stage_mean
+
+
+def read(run):
+    return stage_mean(run, "train")
