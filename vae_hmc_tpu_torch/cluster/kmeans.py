@@ -21,6 +21,7 @@ import torch
 
 from vae_hmc_tpu_torch.core.config import KMeansConfig
 from vae_hmc_tpu_torch.core.device import resolve_device
+from vae_hmc_tpu_torch.core.profiling import as_tensor, span, sync
 
 
 @dataclass
@@ -101,7 +102,9 @@ def _lloyd(x: torch.Tensor, centers: torch.Tensor, max_iter: int,
         centers = torch.where(done[:, None, None], centers, new)
         n_iter += (~done).to(torch.int64)
         done = done | (shift2 <= tol_scaled)
-        if bool(done.all()):
+        with sync("kmeans.done"):
+            stop = bool(done.all())
+        if stop:
             break
     labels, d2 = _assign(x, centers)
     inertia = torch.gather(d2, 2, labels[:, :, None])[:, :, 0].sum(dim=1)
@@ -113,20 +116,30 @@ def tol_scaled(x: torch.Tensor, tol: float) -> torch.Tensor:
     return tol * torch.mean(torch.var(x, dim=0, correction=0))
 
 
+def _fetch(t: torch.Tensor) -> torch.Tensor:
+    """`t` on the host (one wait on the device)."""
+    with sync("kmeans.result"):
+        return t.cpu()
+
+
 def kmeans(x, cfg: KMeansConfig = KMeansConfig(), device="cuda") -> KMeansResult:
-    dev = resolve_device(device)
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
-    centers = _kmeanspp_init(x, cfg.n_clusters, cfg.n_init, gen)
-    labels, centers, inertia, n_iter = _lloyd(x, centers, cfg.max_iter,
-                                              tol_scaled(x, cfg.tol))
-    best = int(torch.argmin(inertia))
-    return KMeansResult(
-        labels=labels[best].cpu().numpy().astype(np.int32),
-        centers=centers[best].cpu().numpy(),
-        inertia=float(inertia[best]),
-        n_iter=int(n_iter[best]))
+    with span("kmeans"):
+        dev = resolve_device(device)
+        x = as_tensor(x, dev, "kmeans.input", torch.float32)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg.seed)
+        with span("kmeans.init"):
+            centers = _kmeanspp_init(x, cfg.n_clusters, cfg.n_init, gen)
+        with span("kmeans.lloyd"):
+            labels, centers, inertia, n_iter = _lloyd(
+                x, centers, cfg.max_iter, tol_scaled(x, cfg.tol))
+        inertia = _fetch(inertia)
+        best = int(torch.argmin(inertia))
+        return KMeansResult(
+            labels=_fetch(labels[best]).numpy().astype(np.int32),
+            centers=_fetch(centers[best]).numpy(),
+            inertia=float(inertia[best]),
+            n_iter=int(_fetch(n_iter)[best]))
 
 
 def kmeans_fit_predict(x, n_clusters: int, n_init: int = 20, seed: int = 42,

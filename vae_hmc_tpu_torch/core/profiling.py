@@ -11,8 +11,14 @@
     (CPU and, where the build has it, CUDA activity) that writes a
     Chrome/Perfetto trace into a directory (the counterpart of
     ``jax.profiler.start_trace``/``stop_trace``);
-  - annotate(): a named range inside a trace, ``record_function``
-    (free when no profiler is on);
+  - annotate(): a named range inside a trace, ``record_function``, built
+    only while a profiler runs (a null context otherwise, so a range in a
+    hot loop costs one flag check when nothing traces);
+  - span() / sync(): the program's own ranges, ``vae:<name>`` at a layer
+    boundary and ``vae:sync.<site>`` around each call that makes the host
+    wait on the device (its duration is the wait; their count is the
+    host-sync count).  The names and the metrics that read them are
+    listed in README.md (``core/profiling``);
   - log(): timestamped stderr logging controlled by VAE_HMC_VERBOSE.
 
 The JAX package's ``warm_connection`` is not ported: it pays the TPU
@@ -33,6 +39,8 @@ import torch
 from torch.profiler import record_function
 
 from vae_hmc_tpu_torch.core.device import synchronize
+
+SPAN_PREFIX = "vae:"
 
 
 class StageTimer:
@@ -87,8 +95,35 @@ def device_trace(log_dir: Path):
 
 
 def annotate(name: str):
-    """A named range in a trace (``torch.profiler.record_function``)."""
+    """A named range in a trace (``torch.profiler.record_function``) while
+    a profiler runs; otherwise a null context that builds no range."""
+    if not torch.autograd._profiler_enabled():
+        return contextlib.nullcontext()
     return record_function(name)
+
+
+def span(name: str):
+    """The program's range `name` at a layer boundary (``vae:<name>``)."""
+    return annotate(SPAN_PREFIX + name)
+
+
+def as_tensor(a, device: torch.device, site: str,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``torch.as_tensor(a, dtype, device=device)``; a copy from the host
+    (an array, a list, or a tensor on the CPU) runs in the sync range
+    `site`.  A tensor already off the host opens no range.  On a CPU
+    device the range marks the site, though nothing waits there."""
+    if isinstance(a, torch.Tensor) and a.device.type != "cpu":
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    with sync(site):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def sync(site: str):
+    """The range around one call at `site` that makes the host wait on the
+    device (a fetch, a Python number of a device tensor, a pageable copy
+    to the device): ``vae:sync.<site>``."""
+    return annotate(f"{SPAN_PREFIX}sync.{site}")
 
 
 def log(msg: str) -> None:

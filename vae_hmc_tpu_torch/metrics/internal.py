@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from vae_hmc_tpu_torch.core.device import resolve_device
+from vae_hmc_tpu_torch.core.profiling import as_tensor, span, sync
 from vae_hmc_tpu_torch.ops.kernels.distance import pairwise_dists
 
 
@@ -45,7 +46,7 @@ def _masked_codes(labels):
 
 def center(x, dev: torch.device) -> torch.Tensor:
     """(N, ...) -> (N, d) float32 rows on `dev` minus their mean, contiguous."""
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    x = as_tensor(x, dev, "metrics.input", torch.float32)
     x = x.reshape(x.shape[0], -1)
     return (x - torch.mean(x, dim=0, keepdim=True)).contiguous()
 
@@ -90,13 +91,18 @@ def _silhouette_from_d(d: torch.Tensor, codes: torch.Tensor,
 
 def silhouette(x, labels, device="cuda") -> float:
     """sklearn.metrics.silhouette_score (euclidean, full, no sampling)."""
-    dev = resolve_device(device)
-    codes = _as_codes(labels)
-    k = int(codes.max()) + 1 if codes.size else 0
-    if k < 2 or k > len(codes) - 1:
-        raise ValueError("silhouette requires 2 <= n_labels <= n_samples - 1")
-    d = pairwise_dists(center(x, dev))
-    return float(_silhouette_from_d(d, torch.as_tensor(codes, device=dev), k))
+    with span("metrics.silhouette"):
+        dev = resolve_device(device)
+        codes = _as_codes(labels)
+        k = int(codes.max()) + 1 if codes.size else 0
+        if k < 2 or k > len(codes) - 1:
+            raise ValueError(
+                "silhouette requires 2 <= n_labels <= n_samples - 1")
+        d = pairwise_dists(center(x, dev))
+        s = _silhouette_from_d(
+            d, as_tensor(codes, dev, "metrics.labels"), k)
+        with sync("metrics.silhouette"):
+            return float(s)
 
 
 def silhouette_from_dists(d: torch.Tensor, labels) -> float:
@@ -137,12 +143,16 @@ def _dbi(xc: torch.Tensor, codes: torch.Tensor, n_clusters: int) -> torch.Tensor
 
 def davies_bouldin(x, labels, device="cuda") -> float:
     """sklearn.metrics.davies_bouldin_score."""
-    dev = resolve_device(device)
-    codes = _as_codes(labels)
-    k = int(codes.max()) + 1
-    if k < 2:
-        raise ValueError("davies_bouldin requires >= 2 clusters")
-    return float(_dbi(center(x, dev), torch.as_tensor(codes, device=dev), k))
+    with span("metrics.davies_bouldin"):
+        dev = resolve_device(device)
+        codes = _as_codes(labels)
+        k = int(codes.max()) + 1
+        if k < 2:
+            raise ValueError("davies_bouldin requires >= 2 clusters")
+        dbi = _dbi(center(x, dev),
+                   as_tensor(codes, dev, "metrics.labels"), k)
+        with sync("metrics.davies_bouldin"):
+            return float(dbi)
 
 
 def davies_bouldin_masked(x, labels, lazy: bool = False,

@@ -26,6 +26,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from vae_hmc_tpu_torch.core import profiling
 from vae_hmc_tpu_torch.core.config import (AeConfig, ConvMMVaeConfig,
                                            DenseVaeConfig, HardVaeConfig)
 from vae_hmc_tpu_torch.core.device import resolve_device
@@ -92,16 +93,18 @@ def _stage(mesh, device, *arrays):
     """-> (device, float32 tensors, span (start, stop, N)): the whole
     arrays on `device`, or on a mesh this rank's rows [start, stop) on its
     device (``shard_rows``; x may be ShardedRows already)."""
-    if mesh is None:
-        dev = resolve_device(device)
-        n = int(arrays[0].shape[0])
-        return dev, [torch.as_tensor(a, dtype=torch.float32, device=dev)
-                     for a in arrays], (0, n, n)
-    n = (arrays[0].n_global if isinstance(arrays[0], ShardedRows)
-         else int(arrays[0].shape[0]))
-    staged = [shard_rows(a, mesh, n) for a in arrays]
-    return (mesh.device, [r.local.to(torch.float32) for r in staged],
-            (staged[0].start, staged[0].stop, n))
+    with profiling.span("train.stage_in"):
+        if mesh is None:
+            dev = resolve_device(device)
+            n = int(arrays[0].shape[0])
+            return dev, [profiling.as_tensor(a, dev, "train.stage_in",
+                                              torch.float32)
+                         for a in arrays], (0, n, n)
+        n = (arrays[0].n_global if isinstance(arrays[0], ShardedRows)
+             else int(arrays[0].shape[0]))
+        staged = [shard_rows(a, mesh, n) for a in arrays]
+        return (mesh.device, [r.local.to(torch.float32) for r in staged],
+                (staged[0].start, staged[0].stop, n))
 
 
 def _fit(model, arrays, span, mesh, sharding=None, **kw):
@@ -118,13 +121,15 @@ def _export(encode_fn: Callable, arrays, latent_dim: int, mesh, span,
             batch_size: int = 512) -> torch.Tensor:
     """Posterior means of every row: on a mesh each rank encodes its own
     rows and the ranges are gathered over 'data' (every rank gets all N)."""
-    if mesh is None:
-        return encode_in_batches(encode_fn, arrays, batch_size=batch_size)
-    start, stop, n = span
-    local = (encode_in_batches(encode_fn, arrays, batch_size=batch_size)
-             if stop > start else torch.zeros((0, latent_dim),
-                                              device=mesh.device))
-    return collectives.all_gather_rows(local, start, n, mesh.data_group)
+    with profiling.span("train.export"):
+        if mesh is None:
+            return encode_in_batches(encode_fn, arrays,
+                                     batch_size=batch_size)
+        start, stop, n = span
+        local = (encode_in_batches(encode_fn, arrays, batch_size=batch_size)
+                 if stop > start else torch.zeros((0, latent_dim),
+                                                  device=mesh.device))
+        return collectives.all_gather_rows(local, start, n, mesh.data_group)
 
 
 def train_dense_vae(x, cfg: DenseVaeConfig, device="cuda",
@@ -183,15 +188,14 @@ def train_ae(x, cfg: AeConfig, device="cuda", model: Optional[AE] = None,
              perms: Optional[Sequence[np.ndarray]] = None):
     """Deterministic AE baseline (reference scripts/22:139-171): MSE mean,
     no KL.  -> (model, history, z (N, latent) on `device`)."""
-    dev = resolve_device(device)
-    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    dev, arrays, span = _stage(None, device, x)
     if model is None:
-        model = _seeded(cfg.seed, lambda: AE(xt.shape[1], cfg.hidden_dim,
-                                             cfg.latent_dim))
+        model = _seeded(cfg.seed, lambda: AE(arrays[0].shape[1],
+                                             cfg.hidden_dim, cfg.latent_dim))
     model = model.to(dev)
-    res = fit(model, (xt,), epochs=cfg.epochs, batch_size=cfg.batch_size,
+    res = fit(model, arrays, epochs=cfg.epochs, batch_size=cfg.batch_size,
               learning_rate=cfg.learning_rate, seed=cfg.seed,
               variational=False, perms=perms)
     model.eval()
-    z = encode_in_batches(model.encode, (xt,))
+    z = _export(model.encode, arrays, model.latent_dim, None, span)
     return model, res.history, z

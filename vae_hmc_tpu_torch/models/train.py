@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from vae_hmc_tpu_torch.core import artifacts
+from vae_hmc_tpu_torch.core.profiling import span, sync
 from vae_hmc_tpu_torch.models.convert import flax_params, module_tensors
 from vae_hmc_tpu_torch.models.losses import elbo_loss_rows, mse_rows
 from vae_hmc_tpu_torch.parallel import collectives
@@ -133,8 +134,10 @@ def _own_rows(perm: torch.Tensor, start: int, stop: int, batch_size: int,
     the device once, so no step waits on the device for its indices.
     `perm` (CPU) is the epoch's permutation."""
     at = torch.nonzero((perm >= start) & (perm < stop)).squeeze(1)
-    local = (perm[at] - start).to(dev)
-    pos = (at % batch_size).to(dev)
+    with sync("fit.rows"):
+        local = (perm[at] - start).to(dev)
+    with sync("fit.rows"):
+        pos = (at % batch_size).to(dev)
     cuts = torch.searchsorted(at, torch.arange(
         0, len(perm) + batch_size, batch_size)).tolist()
     return lambda i: (local[cuts[i]:cuts[i + 1]], pos[cuts[i]:cuts[i + 1]])
@@ -246,7 +249,8 @@ def fit(model: torch.nn.Module, arrays: Sequence[torch.Tensor], *,
             loss.backward()
         if on_mesh:
             collectives.all_reduce_grads(params, mesh.data_group)
-        opt.step()
+        with span("fit.update"):
+            opt.step()
         return aux
 
     history: List[Dict[str, float]] = []
@@ -261,34 +265,41 @@ def fit(model: torch.nn.Module, arrays: Sequence[torch.Tensor], *,
             start_epoch = int(meta.get("epoch", 0))
             history = list(meta.get("history", []))
 
-    for epoch in range(start_epoch, epochs):
-        perm = (torch.as_tensor(np.asarray(perms[epoch]), dtype=torch.int64)
-                if perms is not None else torch.randperm(
-                    n, generator=_epoch_generator(seed, epoch, _PERM_STREAM)))
-        noise = (_epoch_generator(seed, epoch, _NOISE_STREAM, dev)
-                 if variational and eps_fn is None else None)
-        beta_now = _beta_at(beta, epoch, kl_anneal_epochs)
-        totals = torch.zeros(3, dtype=torch.float32, device=dev)
-        rows = _own_rows(perm, start, stop, batch_size, dev)
-        for i in range(n_full + bool(rem)):
-            b = batch_size if i < n_full else rem
-            totals += step(rows(i), b, epoch, i, beta_now, noise) * b
-        if on_mesh:
-            collectives.all_reduce_sum(totals, mesh.data_group)
-        avg = (totals / n).cpu().numpy()                 # one fetch per epoch
-        row = {"epoch": epoch + 1, "total": float(avg[0]),
-               "recon": float(avg[1]), "kl": float(avg[2])}
-        history.append(row)
-        if verbose and mesh.rank == 0 and (
-                (log_every and epoch % log_every == 0) or epoch == epochs - 1):
-            print(f"[epoch {epoch + 1:3d}/{epochs}] "
-                  f"total {row['total']:.4f} recon {row['recon']:.4f} "
-                  f"kl {row['kl']:.4f}")
-        if (ckpt_path is not None and checkpoint_every
-                and (epoch + 1) % checkpoint_every == 0):
-            artifacts.save_checkpoint(
-                ckpt_path, _train_state_tree(model, opt),
-                metadata={"epoch": epoch + 1, "history": history})
+    with span("fit"):
+        for epoch in range(start_epoch, epochs):
+            with span("fit.epoch"):
+                perm = (torch.as_tensor(np.asarray(perms[epoch]),
+                                        dtype=torch.int64)
+                        if perms is not None else torch.randperm(
+                            n, generator=_epoch_generator(seed, epoch,
+                                                          _PERM_STREAM)))
+                noise = (_epoch_generator(seed, epoch, _NOISE_STREAM, dev)
+                         if variational and eps_fn is None else None)
+                beta_now = _beta_at(beta, epoch, kl_anneal_epochs)
+                totals = torch.zeros(3, dtype=torch.float32, device=dev)
+                rows = _own_rows(perm, start, stop, batch_size, dev)
+            for i in range(n_full + bool(rem)):
+                b = batch_size if i < n_full else rem
+                with span("fit.step"):
+                    totals += step(rows(i), b, epoch, i, beta_now, noise) * b
+            if on_mesh:
+                collectives.all_reduce_sum(totals, mesh.data_group)
+            with sync("fit.history"):
+                avg = (totals / n).cpu().numpy()         # one fetch per epoch
+            row = {"epoch": epoch + 1, "total": float(avg[0]),
+                   "recon": float(avg[1]), "kl": float(avg[2])}
+            history.append(row)
+            if verbose and mesh.rank == 0 and (
+                    (log_every and epoch % log_every == 0)
+                    or epoch == epochs - 1):
+                print(f"[epoch {epoch + 1:3d}/{epochs}] "
+                      f"total {row['total']:.4f} recon {row['recon']:.4f} "
+                      f"kl {row['kl']:.4f}")
+            if (ckpt_path is not None and checkpoint_every
+                    and (epoch + 1) % checkpoint_every == 0):
+                artifacts.save_checkpoint(
+                    ckpt_path, _train_state_tree(model, opt),
+                    metadata={"epoch": epoch + 1, "history": history})
     if param_shardings is not None:
         gather_params(model, mesh)
     return FitResult(history=history)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from vae_hmc_tpu_torch.core.config import MelConfig
+from vae_hmc_tpu_torch.core.profiling import sync
 from vae_hmc_tpu_torch.ops.stft import power_spectrogram
 
 
@@ -113,18 +114,24 @@ def _cached(cfg):
                                  cfg.fmin, cfg.fmax)
 
 
+def _table(a: np.ndarray, device) -> torch.Tensor:
+    """A host table copied to `device` (a wait on the device)."""
+    with sync("mel.table"):
+        return torch.tensor(a, device=device)
+
+
 def mel_filterbank_tensor(cfg, device) -> torch.Tensor:
-    return torch.tensor(_cached(cfg)[0], device=device)
+    return _table(_cached(cfg)[0], device)
 
 
 def filterbank_bands_tensor(cfg, device) -> torch.Tensor:
     """``filterbank_bands`` of the config's filterbank, on `device`."""
-    return torch.tensor(_cached(cfg)[1], device=device)
+    return _table(_cached(cfg)[1], device)
 
 
 def filterbank_weights_tensor(cfg, device) -> torch.Tensor:
     """``filterbank_weights`` of the config's filterbank, on `device`."""
-    return torch.tensor(_cached(cfg)[2], device=device)
+    return _table(_cached(cfg)[2], device)
 
 
 def effective_top_db(cfg: MelConfig) -> Optional[float]:

@@ -30,6 +30,7 @@ import torch
 from vae_hmc_tpu_torch.core.artifacts import save_csv_rows
 from vae_hmc_tpu_torch.core.config import MelConfig, MfccConfig
 from vae_hmc_tpu_torch.core.device import resolve_device
+from vae_hmc_tpu_torch.core.profiling import as_tensor, span, sync
 from vae_hmc_tpu_torch.io.staging import (batched_indices, prefetch_batches,
                                           to_device)
 from vae_hmc_tpu_torch.ops.kernels.logmel import logmel_standardized
@@ -150,38 +151,40 @@ def build_logmel(source, cfg: MelConfig, device_batch: int = 128,
     Reproduces reference scripts/10: fixed-length clips, log-mel dB with
     per-sample ref=max and the top_db floor, per-sample standardization;
     T = 1 + n_samples // hop."""
-    dev = resolve_device(device)
-    feats, finite_parts, meta = [], [], []   # meta: (tid, pstr, err-or-None)
-    for idx, batch, _lengths, errors in _waveform_batches(
-            source, cfg.duration_s, device_batch, dev):
-        x = logmel_standardized(_on_device(batch, dev), cfg)
-        keep = [r for r, e in enumerate(errors) if e is None]
-        if len(keep) != len(idx):
-            x = x[torch.as_tensor(keep, device=dev)]
-        if keep:
-            finite_parts.append(torch.isfinite(x).all(dim=2).all(dim=1))
-            feats.append(x)
-        meta.extend((int(source.track_ids[i]), _path_str(source, i),
-                     errors[r]) for r, i in enumerate(idx))
-    if not feats:
-        raise RuntimeError("no tracks produced features")
-    finite = torch.cat(finite_parts).cpu().numpy()          # one small fetch
-    ids, rows, keep_pos = [], [], []
-    p = 0                        # position among the non-error rows
-    for tid, pstr, err in meta:
-        if err is not None:
-            rows.append((tid, pstr, "error", err))
-            continue
-        if not finite[p]:
-            rows.append((tid, pstr, "error", "non_finite_features"))
-        else:
-            keep_pos.append(p)
-            ids.append(tid)
-            rows.append((tid, pstr, "ok", ""))
-        p += 1
-    if not keep_pos:
-        raise RuntimeError("no tracks produced features")
-    X = feats[0] if len(feats) == 1 else torch.cat(feats, dim=0)
-    if len(keep_pos) != p:
-        X = X[torch.as_tensor(keep_pos, device=dev)]
-    return X, np.asarray(ids, dtype=np.int64), BuildReport(rows)
+    with span("features.logmel"):
+        dev = resolve_device(device)
+        feats, finite_parts, meta = [], [], []  # (tid, pstr, err-or-None)
+        for idx, batch, _lengths, errors in _waveform_batches(
+                source, cfg.duration_s, device_batch, dev):
+            x = logmel_standardized(_on_device(batch, dev), cfg)
+            keep = [r for r, e in enumerate(errors) if e is None]
+            if len(keep) != len(idx):
+                x = x[as_tensor(keep, dev, "features.keep")]
+            if keep:
+                finite_parts.append(torch.isfinite(x).all(dim=2).all(dim=1))
+                feats.append(x)
+            meta.extend((int(source.track_ids[i]), _path_str(source, i),
+                         errors[r]) for r, i in enumerate(idx))
+        if not feats:
+            raise RuntimeError("no tracks produced features")
+        with sync("features.finite"):
+            finite = torch.cat(finite_parts).cpu().numpy()  # one small fetch
+        ids, rows, keep_pos = [], [], []
+        p = 0                        # position among the non-error rows
+        for tid, pstr, err in meta:
+            if err is not None:
+                rows.append((tid, pstr, "error", err))
+                continue
+            if not finite[p]:
+                rows.append((tid, pstr, "error", "non_finite_features"))
+            else:
+                keep_pos.append(p)
+                ids.append(tid)
+                rows.append((tid, pstr, "ok", ""))
+            p += 1
+        if not keep_pos:
+            raise RuntimeError("no tracks produced features")
+        X = feats[0] if len(feats) == 1 else torch.cat(feats, dim=0)
+        if len(keep_pos) != p:
+            X = X[as_tensor(keep_pos, dev, "features.keep")]
+        return X, np.asarray(ids, dtype=np.int64), BuildReport(rows)

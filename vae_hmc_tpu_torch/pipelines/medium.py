@@ -42,7 +42,6 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from vae_hmc_tpu_torch.cluster import sweep as sweep_mod
 from vae_hmc_tpu_torch.cluster.sweep import RepData
@@ -54,7 +53,7 @@ from vae_hmc_tpu_torch.core.config import (ConvMMVaeConfig, MelConfig,
                                            Workspace, asdict)
 from vae_hmc_tpu_torch.core.device import (as_rows, resolve_device,
                                            synchronize)
-from vae_hmc_tpu_torch.core.profiling import StageTimer, log
+from vae_hmc_tpu_torch.core.profiling import StageTimer, annotate, log
 from vae_hmc_tpu_torch.ops.pca import PCA
 from vae_hmc_tpu_torch.ops import scaler
 from vae_hmc_tpu_torch.viz import plots
@@ -775,7 +774,7 @@ def scripts_11_13_16(source, ws: Workspace, mu: torch.Tensor,
     genre_map = {int(i): str(g) for i, g in zip(source.track_ids,
                                                 source.genres)}
     t = [time.perf_counter()]
-    with record_function("stage:representations"):
+    with annotate("stage:representations"):
         lyr = build_lyrics_embeddings(source, ws, device=dev)
         reps = _load_reps(ws, genre_map, arrays={
             "vae_mm_latents": (mu, ids),
@@ -783,12 +782,12 @@ def scripts_11_13_16(source, ws: Workspace, mu: torch.Tensor,
             "baseline_lyrics_only": (lyr["emb"], lyr["ids"])}, device=dev)
         synchronize(dev)
     t.append(time.perf_counter())
-    with record_function("stage:script13"):
+    with annotate("stage:script13"):
         rows13 = cluster_and_evaluate(ws, genre_map, n_clusters, reps=reps,
                                       device=dev)
         synchronize(dev)
     t.append(time.perf_counter())
-    with record_function("stage:script16"):
+    with annotate("stage:script16"):
         rows16 = full_clustering_sweep(ws, genre_map, cfg, reps=reps,
                                        device=dev)
         synchronize(dev)

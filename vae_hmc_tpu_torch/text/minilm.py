@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from vae_hmc_tpu_torch.core.device import resolve_device
+from vae_hmc_tpu_torch.core.profiling import span, sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -352,14 +353,21 @@ def encode_texts(model: MiniLM, tok: WordPieceTokenizer, texts: List[str],
     returns the device tensor."""
     dev = next(model.parameters()).device
     out = []
-    with torch.no_grad():
+    with span("minilm.encode"), torch.no_grad():
         for s in range(0, len(texts), batch_size):
-            ids, mask = tok.encode_batch(texts[s: s + batch_size])
-            out.append(model(torch.from_numpy(ids).to(dev, torch.int64),
-                             torch.from_numpy(mask).to(dev)))
-    emb = torch.cat(out) if out else torch.zeros(
-        (0, model.cfg.hidden), device=dev)
-    return emb.cpu().numpy() if to_host else emb
+            with span("minilm.tokenize"):
+                ids, mask = tok.encode_batch(texts[s: s + batch_size])
+            with sync("minilm.ids"):
+                ids = torch.from_numpy(ids).to(dev, torch.int64)
+            with sync("minilm.mask"):
+                mask = torch.from_numpy(mask).to(dev)
+            out.append(model(ids, mask))
+        emb = torch.cat(out) if out else torch.zeros(
+            (0, model.cfg.hidden), device=dev)
+        if not to_host:
+            return emb
+        with sync("minilm.result"):
+            return emb.cpu().numpy()
 
 
 def encode_texts_minilm(texts: List[str], model_dir: Path,

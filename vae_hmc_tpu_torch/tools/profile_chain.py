@@ -32,6 +32,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from vae_hmc_tpu_torch.core import profiling
 from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig, Workspace
 from vae_hmc_tpu_torch.core.device import resolve_device
 from vae_hmc_tpu_torch.ops.kernels import build
@@ -112,20 +113,13 @@ def _profile_tier(dev, name: str, run) -> None:
 def _report(prof, seconds, launches, wall_s: float, top: int) -> None:
     print("profiled run:", json.dumps(seconds))
     print("launches:", json.dumps(launches))
-    host = [e for e in prof.key_averages()
-            if e.self_cpu_time_total > 0 and not e.key.startswith("stage:")]
-    host.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
     print("host ops by self time:")
-    for e in host[:top]:
+    for e in _host_ops(prof.key_averages())[:top]:
         print(f"  {e.self_cpu_time_total / 1e3:10.3f} ms  {e.count:6d} calls  "
               f"{e.key[:100]}")
 
-    # device activity: kernels, copies and fills; not the device-side copies
-    # of the stage ranges, nor the launch queue's "Command Buffer Full"
     events = prof.events()
-    dev_events = [e for e in events if e.device_type == DeviceType.CUDA
-                  and not e.name.startswith("stage:")
-                  and e.name != "Command Buffer Full"]
+    dev_events = _device_events(events)
     dev_iv = sorted((e.time_range.start, e.time_range.end)
                     for e in dev_events)
     # a stage's device time is the device activity inside its wall window
@@ -151,6 +145,25 @@ def _report(prof, seconds, launches, wall_s: float, top: int) -> None:
     for name, (t, n) in sorted(by_name.items()):
         if any(k in name for k in PORT_KERNELS):
             print(f"  {t / 1e3:10.3f} ms  {n:6d} calls  {name[:110]}")
+
+
+def _host_ops(averages) -> list:
+    """The host ops of `averages` with self time, the most first; not the
+    program's ranges (``stage:*`` and ``vae:*``), which are no ops."""
+    host = [e for e in averages if e.self_cpu_time_total > 0
+            and not e.key.startswith(("stage:", profiling.SPAN_PREFIX))]
+    return sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)
+
+
+def _device_events(events) -> list:
+    """Device activity: kernels, copies and fills.  Not the copies the
+    profiler draws on the device timeline of host ranges (``stage:*``, the
+    program's ``vae:*``, the optimizer's), which carry a host event's name
+    and span the kernels launched inside the range and the gaps between
+    them; nor the launch queue's "Command Buffer Full"."""
+    host = {e.name for e in events if e.device_type != DeviceType.CUDA}
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and e.name not in host and e.name != "Command Buffer Full"]
 
 
 if __name__ == "__main__":
