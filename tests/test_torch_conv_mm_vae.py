@@ -7,6 +7,9 @@ from a seed).  Forward outputs agree to atol 1e-5, gradients (mapped back
 through the same conversion, a pure permutation) to rtol 1e-4, and a
 3-step Adam trajectory with injected permutations follows the Flax model
 trained with optax.adam.  Shapes: n_mels=32, T=65, full channel widths.
+``train_conv_mm_vae``'s float32 fit and export in one process run with
+cuDNN's measured engine choice on unless the caller set deterministic
+cuDNN; bf16 and a mesh keep the heuristic pick; every flag is restored.
 """
 import dataclasses
 
@@ -21,12 +24,14 @@ from vae_hmc_tpu.core.config import ConvMMVaeConfig as JConvMMVaeConfig
 from vae_hmc_tpu.models.conv_mm_vae import ConvMMVAE as FlaxConvMMVAE
 from vae_hmc_tpu.models.losses import elbo_loss as jelbo
 from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig
+from vae_hmc_tpu_torch.core.device import TIMED_ENGINES
 from vae_hmc_tpu_torch.models.api import (build_conv_mm_vae,
                                           train_conv_mm_vae)
 from vae_hmc_tpu_torch.models.conv_mm_vae import ConvMMVAE
 from vae_hmc_tpu_torch.models.convert import (conv_mm_vae_flax_params,
                                               conv_mm_vae_state_dict)
 from vae_hmc_tpu_torch.models.losses import elbo_loss
+from vae_hmc_tpu_torch.parallel.mesh import make_mesh
 
 torch.manual_seed(0)
 torch.set_num_threads(1)
@@ -204,3 +209,84 @@ def test_config_copy_and_seeded_init():
     assert torch.equal(state, torch.random.get_rng_state())
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+_CUDNN_FLAGS = ("benchmark", "benchmark_limit", "deterministic", "allow_tf32")
+
+
+def _cudnn_flags():
+    return {k: getattr(torch.backends.cudnn, k) for k in _CUDNN_FLAGS}
+
+
+def _flag_recording_fit(eps_fn=None, compute_dtype="float32", mesh=None):
+    """A tiny train_conv_mm_vae on the CPU (12 rows: steps of 8 and 4, an
+    export batch) with a pre-hook on the first conv, which the fit
+    (training mode) and the export (eval mode) both run: -> [(training,
+    cuDNN flags at that call)]."""
+    cfg = ConvMMVaeConfig(audio_channels=(4, 8, 8), audio_fc_dim=16,
+                          latent_dim=4, epochs=2, batch_size=8,
+                          compute_dtype=compute_dtype)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((12, 16, 20, 1)).astype(np.float32)
+    lyr = rng.standard_normal((12, 8)).astype(np.float32)
+    m = (rng.random(12) < 0.7).astype(np.float32)
+    model = build_conv_mm_vae(cfg, 16, 20, 8)
+    seen = []
+    model.enc_convs[0].register_forward_pre_hook(
+        lambda mod, args: seen.append((mod.training, _cudnn_flags())))
+    train_conv_mm_vae(x, lyr, m, cfg, device="cpu", model=model,
+                      eps_fn=eps_fn, mesh=mesh)
+    return seen
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+@pytest.mark.parametrize("benchmark", [False, True])
+def test_conv_fit_measures_cudnn_engines_in_a_scope(monkeypatch, benchmark,
+                                                    deterministic):
+    """A float32 fit and its export in one process run with cuDNN's
+    measured engine choice on (its leading candidates timed) and TF32 as
+    the caller set it; a caller who set deterministic cuDNN keeps the
+    heuristic pick, every flag as it was.  On return every flag is the
+    caller's again."""
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", benchmark)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", deterministic)
+    caller = _cudnn_flags()
+    seen = _flag_recording_fit()
+    assert {training for training, _ in seen} == {True, False}
+    inside = (caller if deterministic else
+              dict(caller, benchmark=True, benchmark_limit=TIMED_ENGINES))
+    assert all(flags == inside for _, flags in seen)
+    assert _cudnn_flags() == caller
+
+
+@pytest.mark.parametrize("traffic", ["bfloat16", "mesh"])
+def test_conv_fit_keeps_the_heuristic_pick_off_its_measured_traffic(
+        monkeypatch, traffic):
+    """A bf16 fit, and a fit on a mesh (one rank here), run fit and export
+    on cuDNN's heuristic pick: every flag inside is the caller's."""
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    caller = _cudnn_flags()
+    seen = (_flag_recording_fit(compute_dtype="bfloat16")
+            if traffic == "bfloat16"
+            else _flag_recording_fit(mesh=make_mesh(device="cpu")))
+    assert {training for training, _ in seen} == {True, False}
+    assert all(flags == caller for _, flags in seen)
+    assert _cudnn_flags() == caller
+
+
+def test_conv_fit_restores_cudnn_flags_when_it_raises(monkeypatch):
+    class Stop(Exception):
+        pass
+
+    def eps_fn(epoch, step):
+        if (epoch, step) == (0, 1):
+            raise Stop
+        return torch.zeros(8, 4)
+
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    caller = _cudnn_flags()
+    with pytest.raises(Stop):
+        _flag_recording_fit(eps_fn)
+    assert _cudnn_flags() == caller

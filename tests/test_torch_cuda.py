@@ -1,9 +1,9 @@
 """GPU tests of the port: each CUDA kernel against its plain version on the
 card (kernel 1 also in the MFCC mode at the easy and hard tiers' frame
 counts), the main path and the three tiers through both kernels at a small
-size, MiniLM, MFCC stats, the scripts 13/16 sweep and the bf16 train step
-on the card against the CPU, and a resumed dense fit against a straight
-one.
+size, MiniLM, MFCC stats, the scripts 13/16 sweep, the bf16 train step and
+the full-width float32 conv step on cuDNN's measured engines on the card
+against the CPU, and a resumed dense fit against a straight one.
 
 Marked ``cuda``; they skip without a GPU.  The GPU machine has no JAX and
 tests/conftest.py imports it, so this file imports torch and numpy only and
@@ -542,6 +542,82 @@ def test_bf16_fit_on_gpu_matches_cpu(gpu, kind):
         print(f"bf16 {kind} epoch {c['epoch']}: card - cpu {gap:.3e} "
               f"of total {c['total']:.6f}")
         assert gap <= 2e-3 * abs(c["total"]), (c, g)
+
+
+class _ReluMasks(torch.overrides.TorchFunctionMode):
+    """Inside it every ``F.relu`` records its output's sign pattern, in call
+    order; given recorded `masks`, each call applies its mask instead (the
+    same activation pattern, so the same gradient paths)."""
+
+    def __init__(self, masks=None):
+        super().__init__()
+        self.masks, self.seen = masks, []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is not torch.nn.functional.relu:
+            return func(*args, **kwargs)
+        if self.masks is None:
+            out = func(*args, **kwargs)
+            self.seen.append((out > 0).cpu())
+            return out
+        mask = self.masks[len(self.seen)]
+        self.seen.append(mask)
+        return args[0] * mask.to(args[0])
+
+
+def test_conv_step_under_measured_engines_matches_float64(gpu, monkeypatch):
+    """One full-width (128 x 646) ConvMMVAE step at batch 64 under the conv
+    fit's scope (cuDNN's measured engines): TF32 stays off inside it, and
+    every weight's gradient is within 1e-4 of its norm of the same step in
+    float64 on the CPU (worst leaf).  The card's step runs twice, the second
+    on the engines the first measured.  The float64 step takes the card's
+    ReLU sign patterns: a pre-activation within rounding of zero flips its
+    unit on or off, and those few units alone put the float32 step up to
+    5.7e-4 off float64 on any engine; with the patterns shared it reads
+    about 1e-6, and with TF32 on 7.5e-4 (H100)."""
+    from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig
+    from vae_hmc_tpu_torch.core.device import (TIMED_ENGINES,
+                                               measured_conv_engines,
+                                               resolve_device)
+    from vae_hmc_tpu_torch.models.api import build_conv_mm_vae
+    from vae_hmc_tpu_torch.models.losses import elbo_loss
+    resolve_device(gpu)                                   # parity mode
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    rng = np.random.default_rng(15)
+    inputs = (rng.standard_normal((64, 128, 646, 1)),
+              rng.standard_normal((64, 384)),
+              rng.random((64, 1)) < 0.9,
+              rng.standard_normal((64, 32)))
+
+    def step(dev, dtype, steps, masks=None):
+        model = build_conv_mm_vae(ConvMMVaeConfig(), 128, 646, 384).to(
+            dev, dtype)
+        x, lyr, m, eps = (torch.tensor(a, dtype=dtype, device=dev)
+                          for a in inputs)
+        for _ in range(steps):
+            model.zero_grad(set_to_none=True)
+            relu = _ReluMasks(masks)
+            with relu:
+                xhat, mu, logvar = model(x, lyr, m, eps=eps)
+            elbo_loss(xhat, x, mu, logvar)[0].backward()
+        return relu.seen, {k: p.grad.to("cpu", torch.float64)
+                           for k, p in model.named_parameters()
+                           if p.grad is not None}
+
+    with measured_conv_engines():
+        assert torch.backends.cudnn.benchmark is True
+        assert torch.backends.cudnn.benchmark_limit == TIMED_ENGINES
+        assert torch.backends.cudnn.allow_tf32 is False
+        masks, got = step(gpu, torch.float32, 2)
+    _, want = step("cpu", torch.float64, 1, masks)
+    assert set(got) == set(want) and len(want) > 20
+    gaps = {k: float((got[k] - w).norm() / w.norm()) for k, w in want.items()}
+    worst = max(gaps, key=gaps.get)
+    print(f"measured engines, card float32 vs CPU float64: worst leaf "
+          f"{worst} {gaps[worst]:.3e}, median "
+          f"{float(np.median(list(gaps.values()))):.3e}")
+    assert gaps[worst] <= 1e-4, gaps
 
 
 def test_dense_resume_on_gpu_bit_for_bit(gpu, tmp_path):

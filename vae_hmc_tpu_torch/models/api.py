@@ -29,7 +29,8 @@ import torch
 from vae_hmc_tpu_torch.core import profiling
 from vae_hmc_tpu_torch.core.config import (AeConfig, ConvMMVaeConfig,
                                            DenseVaeConfig, HardVaeConfig)
-from vae_hmc_tpu_torch.core.device import resolve_device
+from vae_hmc_tpu_torch.core.device import (measured_conv_engines,
+                                           resolve_device)
 from vae_hmc_tpu_torch.models.ae import AE
 from vae_hmc_tpu_torch.models.conv_mm_vae import ConvMMVAE
 from vae_hmc_tpu_torch.models.dense_vae import DenseVAE
@@ -78,14 +79,17 @@ def train_conv_mm_vae(x, lyr, mask, cfg: ConvMMVaeConfig, device="cuda",
         model = build_conv_mm_vae(cfg, arrays[0].shape[1], arrays[0].shape[2],
                                   arrays[1].shape[1])
     model = model.to(dev)
-    res = _fit(model, arrays, span, mesh, conv_mm_param_sharding,
-               epochs=cfg.epochs, batch_size=cfg.batch_size,
-               learning_rate=cfg.learning_rate, beta=cfg.beta,
-               reduction=cfg.loss_reduction, seed=cfg.seed, verbose=verbose,
-               compute_dtype=cfg.compute_dtype, perms=perms, eps_fn=eps_fn)
-    model.eval()
-    mu = _export(lambda xb, lb, mb: model.encode(xb, lb, mb)[0], arrays,
-                 model.latent_dim, mesh, span, batch_size=256)
+    # each conv pass on the engine cuDNN measures fastest for its shape
+    with measured_conv_engines(cfg.compute_dtype, mesh):
+        res = _fit(model, arrays, span, mesh, conv_mm_param_sharding,
+                   epochs=cfg.epochs, batch_size=cfg.batch_size,
+                   learning_rate=cfg.learning_rate, beta=cfg.beta,
+                   reduction=cfg.loss_reduction, seed=cfg.seed,
+                   verbose=verbose, compute_dtype=cfg.compute_dtype,
+                   perms=perms, eps_fn=eps_fn)
+        model.eval()
+        mu = _export(lambda xb, lb, mb: model.encode(xb, lb, mb)[0], arrays,
+                     model.latent_dim, mesh, span, batch_size=256)
     return model, res.history, mu
 
 

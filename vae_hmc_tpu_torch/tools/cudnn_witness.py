@@ -4,10 +4,11 @@ set before the CLI starts, and say whether each repeats bit for bit.
 
     python -m vae_hmc_tpu_torch.tools.cudnn_witness --out DIR
 
-The port leaves the flag off (parity mode times cuDNN's default
-algorithms), and over five runs ``tools/certify_goldens`` finds these two
-keys spreading past its 1% rule.  If they repeat here, the default conv
-algorithms are the measured cause; if not, something else moves them.
+The port leaves the flag off (parity mode runs cuDNN's nondeterministic
+engines; with the flag on, the conv fit keeps cuDNN's heuristic pick and
+times nothing), and over five runs ``tools/certify_goldens`` finds these two
+keys spreading past its 1% rule.  If they repeat here, the nondeterministic
+conv engines are the measured cause; if not, something else moves them.
 The runs, their commands and the summary are ``certify_goldens``'s.
 """
 from __future__ import annotations
