@@ -3,7 +3,9 @@ card (kernel 1 also in the MFCC mode at the easy and hard tiers' frame
 counts), the main path and the three tiers through both kernels at a small
 size, MiniLM, MFCC stats, the scripts 13/16 sweep, the bf16 train step and
 the full-width float32 conv step on cuDNN's measured engines on the card
-against the CPU, and a resumed dense fit against a straight one.
+against the CPU, a resumed dense fit against a straight one, and one
+full-width MLA and MoE layer of the MoE LM encoder in bf16 against the
+float32 reference.
 
 Marked ``cuda``; they skip without a GPU.  The GPU machine has no JAX and
 tests/conftest.py imports it, so this file imports torch and numpy only and
@@ -721,3 +723,64 @@ def test_run_bench_small_on_the_card(gpu, tmp_path, monkeypatch):
     assert -1.0 <= r["silhouette"] <= 1.0 and r["davies_bouldin"] > 0.0
     counts = build.launch_counts()     # the smoke's 2 and the timed stages'
     assert counts["mel_db_standardize"] >= 2 and counts["pairwise_dists"] >= 2
+
+
+def test_moe_lm_layers_full_width_in_bf16_match_float32_reference(gpu):
+    """One MLA layer and one MoE layer of Moonlight-16B-A3B at its published
+    widths, bf16 on the card, against the plain float32 reference on the
+    same bf16-drawn weights and normed inputs (the MoE following the
+    program's expert choice within bf16 rounding of the k-th score): the
+    relative gap stays under the Moonlight cell's ``lm_layer`` limit, and
+    the reference with its GEMM inputs in float8 e4m3 does not."""
+    import json
+    from pathlib import Path
+
+    from benchmark.reference import moonlight as ref
+    from benchmark.reference import set_tf32
+    from vae_hmc_tpu_torch.core.config import MoeLMConfig
+    from vae_hmc_tpu_torch.text import moe_lm
+
+    root = Path(__file__).resolve().parents[1]
+    hf = json.loads((root / "benchmark/configs/moonlight_mm_vae.json")
+                    .read_text())
+    limit = json.loads((root / "benchmark/workloads/"
+                        "moonlight_mm_vae.lyrics_job.json").read_text())[
+        "limits"]["lm_layer"]
+    cfg = MoeLMConfig.from_hf(hf, "bfloat16")
+    seed, i = 2 ** 31 + 99, 1
+    with torch.device(gpu):
+        layer = moe_lm.Layer(cfg, i, torch.bfloat16)
+    drawn = {n: ref.draw(seed, n, s, k, hf["initializer_range"], gpu,
+                         torch.bfloat16)
+             for n, s, k in ref.leaves(hf, i)}
+    prefix = f"layers.{i}."
+    layer.load_state_dict({k.removeprefix(prefix): v for k, v in
+                           moe_lm.hf_to_state_dict(drawn, cfg).items()})
+    del drawn
+    lengths = [2048, 1500, 700, 512, 64]
+    g = torch.Generator(device=gpu).manual_seed(5)
+    x = torch.randn(sum(lengths), cfg.hidden, device=gpu, generator=g)
+    pk = moe_lm.Packing(cfg, [np.zeros(n, np.int64) for n in lengths], gpu)
+    with torch.no_grad():
+        attn = layer.self_attn(x, pk)
+        choice, _ = layer.mlp.gate(x)
+        moe = layer.mlp(x, pk)
+    set_tf32(False)
+    w = ref.part_weights(hf, seed, i, gpu, torch.bfloat16)
+    p = f"model.layers.{i}."
+
+    def ref_layer(fault=None, follow=None):
+        a = torch.cat([ref.mla(w, p + "self_attn.", hf, xs, fault)
+                       for xs in x.split(lengths)])
+        m, _ = ref.moe(w, p + "mlp.", hf, x, fault, follow)
+        return a, m
+
+    def gap(a, b):
+        return float((a.float() - b).norm() / b.norm())
+
+    want_a, want_m = ref_layer(follow=choice)
+    got = max(gap(attn, want_a), gap(moe, want_m))
+    assert got < limit, (got, limit)
+    f8_a, f8_m = ref_layer("fp8")
+    f8 = max(gap(f8_a, want_a), gap(f8_m, want_m))
+    assert f8 > limit, (f8, limit)

@@ -10,7 +10,8 @@ Copies of ``vae_hmc_tpu.core.config`` ``Workspace``, ``MelConfig``
 (``TSNE_DEFAULT``), ``UmapConfig`` (``UMAP_EASY``, ``UMAP_HARD``),
 ``ParallelConfig``, ``asdict`` and ``to_json`` with their reference
 citations, so the port never imports the JAX package.  Field values are
-identical; the tests compare them.
+identical; the tests compare them.  ``MoeLMConfig`` is the port's own (the
+JAX package has no decoder LM): Moonlight-16B-A3B's published config.json.
 """
 from __future__ import annotations
 
@@ -256,6 +257,76 @@ class TextEmbedConfig:
 
 TEXT_MEDIUM = TextEmbedConfig()
 TEXT_HARD = TextEmbedConfig(min_chars=1)
+
+
+@dataclass(frozen=True)
+class MoeLMConfig:
+    """A DeepSeek-V3-layout decoder (MLA attention, sigmoid-routed sparse
+    MoE with shared experts) used as a lyrics embedder (``text.moe_lm``).
+    Defaults are Moonlight-16B-A3B's config.json
+    (https://huggingface.co/moonshotai/Moonlight-16B-A3B); ``from_hf``
+    reads such a file's keys."""
+
+    vocab_size: int = 163840
+    hidden: int = 2048
+    layers: int = 27
+    heads: int = 16
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    kv_lora_rank: int = 512
+    dense_width: int = 11264       # intermediate_size (layers < first_dense)
+    expert_width: int = 1408       # moe_intermediate_size
+    n_experts: int = 64            # n_routed_experts
+    top_k: int = 6                 # num_experts_per_tok
+    n_shared: int = 2              # n_shared_experts
+    first_dense: int = 1           # first_k_dense_replace
+    routed_scale: float = 2.446    # routed_scaling_factor
+    rope_theta: float = 50000.0
+    rms_eps: float = 1e-5
+    max_positions: int = 8192      # max_position_embeddings
+    dtype: str = "bfloat16"        # weights and GEMM inputs
+
+    HF_KEYS = {"vocab_size": "vocab_size", "hidden_size": "hidden",
+               "num_hidden_layers": "layers",
+               "num_attention_heads": "heads",
+               "qk_nope_head_dim": "qk_nope_dim",
+               "qk_rope_head_dim": "qk_rope_dim",
+               "v_head_dim": "v_head_dim", "kv_lora_rank": "kv_lora_rank",
+               "intermediate_size": "dense_width",
+               "moe_intermediate_size": "expert_width",
+               "n_routed_experts": "n_experts",
+               "num_experts_per_tok": "top_k",
+               "n_shared_experts": "n_shared",
+               "first_k_dense_replace": "first_dense",
+               "routed_scaling_factor": "routed_scale",
+               "rope_theta": "rope_theta", "rms_norm_eps": "rms_eps",
+               "max_position_embeddings": "max_positions"}
+    # what this module computes; from_hf refuses a config that asks for
+    # anything else
+    HF_FIXED = {"q_lora_rank": None, "n_group": 1, "topk_group": 1,
+                "topk_method": "noaux_tc", "scoring_func": "sigmoid",
+                "norm_topk_prob": True, "hidden_act": "silu",
+                "attention_bias": False, "moe_layer_freq": 1,
+                "rope_scaling": None}
+
+    @classmethod
+    def from_hf(cls, hf: dict, dtype: str = "bfloat16") -> "MoeLMConfig":
+        """The fields of a HuggingFace ``deepseek_v3`` config.json dict."""
+        for key, want in cls.HF_FIXED.items():
+            if hf.get(key, want) != want:
+                raise ValueError(f"config {key}={hf[key]!r}: only "
+                                 f"{want!r} is implemented")
+        return cls(dtype=dtype, **{mine: hf[key]
+                                   for key, mine in cls.HF_KEYS.items()})
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+    @property
+    def moe_layers(self) -> int:
+        return self.layers - self.first_dense
 
 
 @dataclass(frozen=True)

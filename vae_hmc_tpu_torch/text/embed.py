@@ -2,7 +2,12 @@
 ``vae_hmc_tpu.text.embed``).
 
 Order, as in the JAX package (which mirrors the reference's
-sentence-transformers -> TF-IDF fallback, scripts/18:209-222):
+sentence-transformers -> TF-IDF fallback, scripts/18:209-222), after the
+port's own first backend:
+  0. a MoE LM encoder given by the caller (``lm=``, ``text.moe_lm``,
+     Moonlight-16B-A3B) over token ids (``lm_ids=``) -> (M, hidden)
+     normalized; its tokenizer (``tiktoken.model``) is not in the
+     repository, so text without ids raises;
   1. MiniLM with local weights (env VAE_HMC_MINILM_DIR, an explicit
      model_dir argument, or the HF cache) -> (M, 384) normalized — the
      reference's scripts/11 behavior;
@@ -18,7 +23,7 @@ import hashlib
 import os
 import re
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -64,8 +69,14 @@ def hashed_embedding(texts: List[str], dim: int = 384) -> np.ndarray:
 def embed_texts(texts: List[str], cfg: TextEmbedConfig = TextEmbedConfig(),
                 model_dir: Optional[Path] = None,
                 allow_tfidf: bool = True,
-                device="cuda") -> Tuple[np.ndarray, str]:
+                device="cuda", lm=None, lm_ids: Optional[Sequence] = None
+                ) -> Tuple[np.ndarray, str]:
     """-> (embeddings (M, D) f32 on the host, backend name).
+
+    With `lm` (a loaded ``moe_lm.MoeLM``, on its own device) the texts'
+    token ids `lm_ids` (one sequence a text) are encoded by it, backend
+    "moe_lm"; without ids it raises FileNotFoundError naming
+    ``tiktoken.model``.
 
     MiniLM runs when a model directory is found; the chain falls through to
     the next backend only when none is.  A directory that is found but
@@ -73,6 +84,14 @@ def embed_texts(texts: List[str], cfg: TextEmbedConfig = TextEmbedConfig(),
     With no directory, allow_tfidf=True gives TF-IDF (D = the corpus's
     vocabulary, at most cfg.tfidf_max_features) and allow_tfidf=False the
     hashed backend."""
+    if lm is not None:
+        from vae_hmc_tpu_torch.text import moe_lm
+        if lm_ids is None:
+            raise FileNotFoundError(moe_lm.MISSING_TOKENIZER)
+        if len(lm_ids) != len(texts):
+            raise ValueError(f"{len(lm_ids)} id sequences for {len(texts)} "
+                             "texts")
+        return moe_lm.encode_ids(lm, lm_ids, to_host=True), "moe_lm"
     mdir = Path(model_dir) if model_dir else find_minilm_dir(cfg)
     if mdir is not None:
         from vae_hmc_tpu_torch.text.minilm import encode_texts_minilm
