@@ -393,11 +393,9 @@ def phase_logmel(dev) -> dict:
     ]
     for what, cfg, b, kw, atol in cases:
         spec = _spectrogram(b, cfg, dev)
-        fb = mel_ops.mel_filterbank_tensor(cfg, dev)
-        got = mel_db_standardize(
-            spec, fb, bands=mel_ops.filterbank_bands_tensor(cfg, dev),
-            weights=mel_ops.filterbank_weights_tensor(cfg, dev), **kw)
-        want = mel_db_standardize_plain(spec, fb, **kw)
+        table = mel_ops.mel_table(cfg, dev)
+        got = mel_db_standardize(spec, table, **kw)
+        want = mel_db_standardize_plain(spec, table.fb, **kw)
         torch.cuda.synchronize()
         err = check_close(what, got, want, atol)
         if kw["standardize"]:
@@ -408,33 +406,31 @@ def phase_logmel(dev) -> dict:
     cfg = MelConfig(duration_s=1.0, n_mels=32)
     spec = _spectrogram(4, cfg, dev)
     spec[2, 100, 5] = float("nan")
-    fb = mel_ops.mel_filterbank_tensor(cfg, dev)
-    got = mel_db_standardize(spec, fb, bands=mel_ops.filterbank_bands_tensor(
-        cfg, dev), weights=mel_ops.filterbank_weights_tensor(cfg, dev),
-        top_db=80.0)
+    table = mel_ops.mel_table(cfg, dev)
+    got = mel_db_standardize(spec, table, top_db=80.0)
     finite = torch.isfinite(got).all(dim=2).all(dim=1).tolist()
     if finite != [True, True, False, True]:
         fail(f"NaN sample 2: per-sample finite flags {finite}")
     keep = torch.tensor([0, 1, 3], device=dev)
     check_close("NaN in sample 2: the other samples", got[keep],
-                mel_db_standardize_plain(spec, fb, top_db=80.0)[keep], 1e-4)
+                mel_db_standardize_plain(spec, table.fb, top_db=80.0)[keep],
+                1e-4)
     log("  NaN in sample 2: its features are non-finite, the others finite")
 
     cfg = MelConfig()
-    fb = mel_ops.mel_filterbank_tensor(cfg, dev)
-    bands = mel_ops.filterbank_bands_tensor(cfg, dev)
-    weights = mel_ops.filterbank_weights_tensor(cfg, dev)
+    table = mel_ops.mel_table(cfg, dev)
+    fb, weights = table.fb, table.weights
     kw = dict(top_db=mel_ops.effective_top_db(cfg), standardize=True)
     # the partial batches of the main path and of phase 9's CLI run
     for last in (MAIN_TRACKS % DEVICE_BATCH, MAIN_TRACKS % FILE_BATCH):
         spec = _spectrogram(last, cfg, dev)
         max_err = max(max_err, check_close(
             f"B={last} last batch of {MAIN_TRACKS} tracks",
-            mel_db_standardize(spec, fb, bands=bands, weights=weights, **kw),
+            mel_db_standardize(spec, table, **kw),
             mel_db_standardize_plain(spec, fb, **kw), 1e-4))
     spec = _spectrogram(DEVICE_BATCH, cfg, dev)
     build.reset_launch_counts()
-    got = mel_db_standardize(spec, fb, bands=bands, weights=weights, **kw)
+    got = mel_db_standardize(spec, table, **kw)
     per_call = build.launch_counts()["mel_db_standardize"]
     max_err = max(max_err, check_close(
         f"B={DEVICE_BATCH} main-path batch", got,
@@ -446,8 +442,7 @@ def phase_logmel(dev) -> dict:
     log(f"  launches per call: {per_call} (one cluster launch of {b} "
         f"clusters x 8 blocks); cluster occupancy granted: {clusters} "
         f"clusters of 8 at once")
-    ms = time_ms(lambda: mel_db_standardize(spec, fb, bands=bands,
-                                            weights=weights, **kw))
+    ms = time_ms(lambda: mel_db_standardize(spec, table, **kw))
     plain_ms = time_ms(lambda: mel_db_standardize_plain(spec, fb, **kw))
     # yardstick: cuBLAS matmul(fb, spec) plus torch ops for dB and
     # standardize (no single PyTorch call computes this function)
@@ -489,13 +484,11 @@ def phase_logmel_mfcc(dev) -> dict:
     kw = dict(ref_max=False, top_db=80.0, standardize=False)
     max_err, rows = 0.0, []
     for tier, cfg in (("easy", MFCC_EASY), ("hard", MFCC_HARD)):
-        fb = mel_ops.mel_filterbank_tensor(cfg, dev)
-        bands = mel_ops.filterbank_bands_tensor(cfg, dev)
-        weights = mel_ops.filterbank_weights_tensor(cfg, dev)
+        table = mel_ops.mel_table(cfg, dev)
+        fb, weights = table.fb, table.weights
 
         def kernel(spec):
-            return mel_db_standardize(spec, fb, bands=bands, weights=weights,
-                                      **kw)
+            return mel_db_standardize(spec, table, **kw)
 
         for b in (MAIN_TRACKS % MFCC_BATCH, MFCC_BATCH):
             spec = _spectrogram(b, cfg, dev)
@@ -565,9 +558,8 @@ def phase_logmel_file_rows(dev) -> dict:
                                      standardize=False), 1e-3),
             ("hard", MFCC_HARD, dict(ref_max=False, top_db=80.0,
                                      standardize=False), 1e-3)):
-        fb = mel_ops.mel_filterbank_tensor(cfg, dev)
-        bands = mel_ops.filterbank_bands_tensor(cfg, dev)
-        weights = mel_ops.filterbank_weights_tensor(cfg, dev)
+        table = mel_ops.mel_table(cfg, dev)
+        fb, weights = table.fb, table.weights
         for b in (FILE_BATCH, last):
             y, _, _ = src.waveforms(list(range(b)), cfg.duration_s, dev)
             y[0] = 0.0
@@ -575,8 +567,7 @@ def phase_logmel_file_rows(dev) -> dict:
             y[2, int(8.0 * cfg.sample_rate):] = 0.0
             spec = power_spectrogram(y, n_fft=cfg.n_fft,
                                      hop_length=cfg.hop_length)
-            got = mel_db_standardize(spec, fb, bands=bands, weights=weights,
-                                     **kw)
+            got = mel_db_standardize(spec, table, **kw)
             want = mel_db_standardize_plain(spec, fb, **kw)
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
@@ -586,8 +577,7 @@ def phase_logmel_file_rows(dev) -> dict:
                 f"{tier} silent/zero-tailed rows {tuple(spec.shape)}", got,
                 want, atol))
             if b == last:
-                ms = time_ms(lambda: mel_db_standardize(
-                    spec, fb, bands=bands, weights=weights, **kw))
+                ms = time_ms(lambda: mel_db_standardize(spec, table, **kw))
                 plain_ms = time_ms(lambda: mel_db_standardize_plain(
                     spec, fb, **kw))
                 # yardstick as in phase 2: cuBLAS matmul(fb, spec) + torch ops

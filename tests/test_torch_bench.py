@@ -226,12 +226,12 @@ def test_device_trace_holds_annotate_ranges(tmp_path):
         with timer.stage("probe_stage"):
             torch.ones(8).sum()
     names = {e.key for e in prof.key_averages()}
-    assert {"bench:probe", "stage:probe_stage"} <= names
+    assert {"bench:probe", "vae:stage.probe_stage"} <= names
     traces = list((tmp_path / "trace").glob("trace_*.json"))
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
-    assert {"bench:probe", "stage:probe_stage"} <= {e.get("name")
-                                                    for e in events}
+    assert {"bench:probe", "vae:stage.probe_stage"} <= {e.get("name")
+                                                     for e in events}
 
 
 def test_cudnn_witness_launcher_sets_the_flag_and_runs_the_cli(monkeypatch):

@@ -43,22 +43,20 @@ def test_logmel_kernel_matches_plain(gpu):
     y = torch.from_numpy(rng.normal(0, 0.1, (4, cfg.n_samples))
                          .astype(np.float32)).to(gpu)
     spec = tstft.power_spectrogram(y)
-    fb = tmel.mel_filterbank_tensor(cfg, gpu)
-    bands = tmel.filterbank_bands_tensor(cfg, gpu)
-    weights = tmel.filterbank_weights_tensor(cfg, gpu)
+    table = tmel.mel_table(cfg, gpu)
     for top_db, standardize, atol in ((80.0, True, 1e-4), (None, False, 1e-3)):
         before = build.launch_counts()["mel_db_standardize"]
-        got = mel_db_standardize(spec, fb, top_db=top_db,
-                                 standardize=standardize, bands=bands,
-                                 weights=weights)
+        got = mel_db_standardize(spec, table, top_db=top_db,
+                                 standardize=standardize)
         assert build.launch_counts()["mel_db_standardize"] == before + 1
-        want = mel_db_standardize_plain(spec, fb, top_db=top_db,
+        want = mel_db_standardize_plain(spec, table.fb, top_db=top_db,
                                         standardize=standardize)
         torch.testing.assert_close(got, want, rtol=0, atol=atol)
-        # the filterbank table derived from fb on the host when not given
+        # the table of the same bank built from its dense form on the host
         torch.testing.assert_close(
-            mel_db_standardize(spec, fb, top_db=top_db,
-                               standardize=standardize), got, rtol=0, atol=0)
+            mel_db_standardize(spec, tmel.MelTable.from_bank(
+                table.fb.cpu(), gpu), top_db=top_db,
+                standardize=standardize), got, rtol=0, atol=0)
 
 
 def _spec(gpu, n, cfg, seed):
@@ -82,11 +80,10 @@ def test_logmel_kernel_shapes_and_options(gpu, b, cfg_kw, ref_max, top_db,
                                           standardize, atol):
     cfg = MelConfig(**cfg_kw)
     spec = _spec(gpu, b, cfg, seed=b)
-    fb = tmel.mel_filterbank_tensor(cfg, gpu)
+    table = tmel.mel_table(cfg, gpu)
     kw = dict(ref_max=ref_max, top_db=top_db, standardize=standardize)
-    got = mel_db_standardize(spec, fb, bands=tmel.filterbank_bands_tensor(
-        cfg, gpu), weights=tmel.filterbank_weights_tensor(cfg, gpu), **kw)
-    want = mel_db_standardize_plain(spec, fb, **kw)
+    got = mel_db_standardize(spec, table, **kw)
+    want = mel_db_standardize_plain(spec, table.fb, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=atol)
 
 
@@ -96,24 +93,24 @@ def test_logmel_kernel_nan_sample_stays_non_finite(gpu):
     y = rng.normal(0, 0.1, (3, cfg.n_samples)).astype(np.float32)
     y[1, 5000] = np.nan
     spec = tstft.power_spectrogram(torch.from_numpy(y).to(gpu))
-    fb = tmel.mel_filterbank_tensor(cfg, gpu)
-    got = mel_db_standardize(spec, fb, top_db=80.0)
+    table = tmel.mel_table(cfg, gpu)
+    got = mel_db_standardize(spec, table, top_db=80.0)
     finite = torch.isfinite(got).all(dim=2).all(dim=1).cpu().tolist()
     assert finite == [True, False, True]
     keep = torch.tensor([0, 2], device=gpu)
     torch.testing.assert_close(
-        got[keep], mel_db_standardize_plain(spec, fb, top_db=80.0)[keep],
+        got[keep], mel_db_standardize_plain(spec, table.fb, top_db=80.0)[keep],
         rtol=0, atol=1e-4)
 
 
 def test_logmel_kernel_repeats_bitwise_one_launch_a_call(gpu):
     cfg = MelConfig(duration_s=1.0, n_mels=128)
     spec = _spec(gpu, 4, cfg, seed=5)
-    fb = tmel.mel_filterbank_tensor(cfg, gpu)
+    table = tmel.mel_table(cfg, gpu)
     before = build.launch_counts()["mel_db_standardize"]
-    a = mel_db_standardize(spec, fb, top_db=80.0)
+    a = mel_db_standardize(spec, table, top_db=80.0)
     assert build.launch_counts()["mel_db_standardize"] == before + 1
-    b = mel_db_standardize(spec, fb, top_db=80.0)
+    b = mel_db_standardize(spec, table, top_db=80.0)
     assert build.launch_counts()["mel_db_standardize"] == before + 2
     assert torch.equal(a, b)
 
@@ -347,14 +344,14 @@ def test_logmel_kernel_mfcc_mode_at_tier_shapes(gpu, duration_s):
     cfg = MfccConfig(duration_s=duration_s)
     spec = _spec(gpu, 3, cfg, seed=int(duration_s))
     assert spec.shape[2] == 1 + cfg.n_samples // cfg.hop_length
-    fb = tmel.mel_filterbank_tensor(cfg, gpu)
+    table = tmel.mel_table(cfg, gpu)
     kw = dict(ref_max=False, top_db=80.0, standardize=False)
     before = build.launch_counts()["mel_db_standardize"]
-    got = mel_db_standardize(spec, fb, bands=tmel.filterbank_bands_tensor(
-        cfg, gpu), weights=tmel.filterbank_weights_tensor(cfg, gpu), **kw)
+    got = mel_db_standardize(spec, table, **kw)
     assert build.launch_counts()["mel_db_standardize"] == before + 1
-    torch.testing.assert_close(got, mel_db_standardize_plain(spec, fb, **kw),
-                               rtol=0, atol=1e-3)
+    torch.testing.assert_close(
+        got, mel_db_standardize_plain(spec, table.fb, **kw), rtol=0,
+        atol=1e-3)
 
 
 def test_mfcc_stats_on_gpu_match_cpu(gpu):
@@ -451,13 +448,12 @@ def test_logmel_kernel_on_silent_and_zero_tailed_rows(gpu, b, mode,
     y = _silent_and_tailed(b, cfg.n_samples, cfg.sample_rate, seed=b)
     spec = tstft.power_spectrogram(torch.from_numpy(y).to(gpu),
                                    n_fft=cfg.n_fft, hop_length=cfg.hop_length)
-    fb = tmel.mel_filterbank_tensor(cfg, gpu)
+    table = tmel.mel_table(cfg, gpu)
     kw = (dict(top_db=tmel.effective_top_db(cfg), standardize=True)
           if mode == "standardized"
           else dict(ref_max=False, top_db=80.0, standardize=False))
-    got = mel_db_standardize(spec, fb, bands=tmel.filterbank_bands_tensor(
-        cfg, gpu), weights=tmel.filterbank_weights_tensor(cfg, gpu), **kw)
-    want = mel_db_standardize_plain(spec, fb, **kw)
+    got = mel_db_standardize(spec, table, **kw)
+    want = mel_db_standardize_plain(spec, table.fb, **kw)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-4 if mode == "standardized" else 1e-3)

@@ -61,7 +61,7 @@ def test_filterbank_bands_cover_every_nonzero(n_mels, tile):
     empty[1, 2] = 1.0
     np.testing.assert_array_equal(tmel.filterbank_bands(empty),
                                   [[5, 0], [2, 3]])
-    cached = tmel.filterbank_bands_tensor(MelConfig(n_mels=n_mels), "cpu")
+    cached = tmel.mel_table(MelConfig(n_mels=n_mels), "cpu").bands
     np.testing.assert_array_equal(cached.numpy(), bands)
 
 
@@ -104,7 +104,8 @@ def test_kernel_function_matches_pallas_interpret(top_db, standardize, atol):
     ref = np.asarray(jkernel.mel_db_standardize(
         jnp.asarray(spec), jnp.asarray(fb), 32, True, top_db, standardize,
         interpret=True))
-    ours = mel_db_standardize(torch.from_numpy(spec), torch.from_numpy(fb),
+    ours = mel_db_standardize(torch.from_numpy(spec),
+                              tmel.MelTable.from_bank(fb, "cpu"),
                               top_db=top_db, standardize=standardize).numpy()
     np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=atol)
 
@@ -132,12 +133,13 @@ def test_full_width_two_rows():
 def test_wrapper_cpu_takes_plain_version_and_counts_nothing():
     rng = np.random.default_rng(6)
     spec = torch.from_numpy(rng.random((2, 1025, 9), dtype=np.float32))
-    fb = tmel.mel_filterbank_tensor(MelConfig(n_mels=16), "cpu")
+    table = tmel.mel_table(MelConfig(n_mels=16), "cpu")
     before = build.launch_counts()
-    got = mel_db_standardize(spec, fb, top_db=80.0)
+    got = mel_db_standardize(spec, table, top_db=80.0)
     assert build.launch_counts() == before
     torch.testing.assert_close(
-        got, mel_db_standardize_plain(spec, fb, top_db=80.0), rtol=0, atol=0)
+        got, mel_db_standardize_plain(spec, table.fb, top_db=80.0), rtol=0,
+        atol=0)
     # population std: each standardized sample has mean 0 and std 1
     np.testing.assert_allclose(got.mean(dim=(1, 2)).numpy(), 0, atol=1e-5)
     np.testing.assert_allclose(got.std(dim=(1, 2), correction=0).numpy(), 1,
@@ -146,9 +148,32 @@ def test_wrapper_cpu_takes_plain_version_and_counts_nothing():
 
 def test_wrapper_rejects_other_devices():
     spec = torch.empty((1, 1025, 4), device="meta")
-    fb = torch.empty((8, 1025), device="meta")
+    table = tmel.MelTable(*(torch.empty(shape, dtype=dtype, device="meta")
+                            for shape, dtype in (((8, 1025), torch.float32),
+                                                 ((8, 2), torch.int32),
+                                                 ((40,), torch.float32))))
     with pytest.raises(ValueError):
-        mel_db_standardize(spec, fb)
+        mel_db_standardize(spec, table)
+
+
+def test_table_of_a_dense_bank_equals_the_configs_table():
+    """A table built from an arbitrary dense bank holds the same three
+    tensors as the config's table when the banks are equal, and gives
+    mel_db_standardize the same output bit for bit."""
+    cfg = MelConfig(n_mels=32)
+    ours = tmel.mel_table(cfg, "cpu")
+    bank = jmel.mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
+                               cfg.fmin, cfg.fmax)
+    theirs = tmel.MelTable.from_bank(bank, "cpu")
+    for name in ("fb", "bands", "weights"):
+        torch.testing.assert_close(getattr(theirs, name), getattr(ours, name),
+                                   rtol=0, atol=0)
+    spec = torch.from_numpy(np.random.default_rng(10).random(
+        (2, 1025, 9), dtype=np.float32))
+    for kw in (dict(top_db=80.0), dict(ref_max=False, standardize=False)):
+        torch.testing.assert_close(mel_db_standardize(spec, theirs, **kw),
+                                   mel_db_standardize(spec, ours, **kw),
+                                   rtol=0, atol=0)
 
 
 
@@ -157,9 +182,9 @@ def test_packed_filterbank_table_rebuilds_fb_exactly(n_mels):
     """Kernel 1's compact filterbank: each row's weights over its band,
     packed row after row, scatter back to the dense fb bit for bit."""
     cfg = MelConfig(n_mels=n_mels)
-    fb = tmel.mel_filterbank_tensor(cfg, "cpu").numpy()
-    bands = tmel.filterbank_bands_tensor(cfg, "cpu").numpy()
-    weights = tmel.filterbank_weights_tensor(cfg, "cpu").numpy()
+    table = tmel.mel_table(cfg, "cpu")
+    fb, bands, weights = (table.fb.numpy(), table.bands.numpy(),
+                          table.weights.numpy())
     assert weights.dtype == np.float32
     assert weights.size == int((bands[:, 1] - bands[:, 0]).clip(0).sum())
     assert weights.size == int((fb != 0).sum())          # 2,018 at 128 mels

@@ -1,7 +1,8 @@
 """The port's own trace ranges (``core/profiling``): the ``vae:`` spans at
-the layer boundaries of the conv job's path and the ``vae:sync.*`` ranges
-around each wait on the device, read from a CPU profiler trace of tiny
-runs; and the off path, which builds no range when no profiler runs."""
+the layer boundaries of the conv job's path, the ``vae:stage.*`` spans of
+``run_core``'s stages and the ``vae:sync.*`` ranges around each wait on
+the device, read from a CPU profiler trace of tiny runs; and the off path,
+which builds no range when no profiler runs."""
 import math
 from types import SimpleNamespace
 
@@ -12,10 +13,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from vae_hmc_tpu_torch.cluster import kmeans as kmeans_mod
 from vae_hmc_tpu_torch.core import profiling
-from vae_hmc_tpu_torch.core.config import KMeansConfig
+from vae_hmc_tpu_torch.core.config import KMeansConfig, MelConfig
 from vae_hmc_tpu_torch.metrics import internal
 from vae_hmc_tpu_torch.models.dense_vae import DenseVAE
 from vae_hmc_tpu_torch.models.train import fit
+from vae_hmc_tpu_torch.ops import mel
+from vae_hmc_tpu_torch.ops.kernels.logmel import logmel_standardized
+from vae_hmc_tpu_torch.pipelines import bench_chain
 from vae_hmc_tpu_torch.text import minilm
 
 P = profiling.SPAN_PREFIX
@@ -134,6 +138,50 @@ def test_metric_spans():
     assert len(ranges["sync.metrics.input"]) == 2
 
 
+def test_run_core_times_each_stage_in_one_span(monkeypatch):
+    """``run_core``'s four stages are one StageTimer's: a ``stage.<name>``
+    span each, in order, and the result's seconds are the timer's."""
+    timers = []
+
+    class Kept(profiling.StageTimer):
+        def __init__(self, device=None):
+            super().__init__(device)
+            timers.append(self)
+
+    monkeypatch.setattr(bench_chain, "StageTimer", Kept)
+    ranges, res = _ranges(lambda: bench_chain.run_core(
+        n_tracks=16, epochs=1, device="cpu", duration_s=0.5,
+        device_batch=8, lyrics_backend="hashed"))
+    names = ["features", "lyrics", "train", "cluster_metrics"]
+    assert sorted(k for k in ranges if k.startswith("stage.")) == sorted(
+        "stage." + n for n in names)
+    spans = [ranges["stage." + n] for n in names]
+    assert all(len(s) == 1 for s in spans)
+    assert all(a[0][1] <= b[0][0] for a, b in zip(spans, spans[1:]))
+    assert _inside(ranges["sync.mel.table"], ranges["stage.features"])
+    (timer,) = timers
+    assert list(timer.stages) == names
+    for n in names:
+        assert res["seconds_" + n] == timer.stages[n]
+    assert res["seconds_total"] == sum(timer.stages.values())
+
+
+def test_mel_table_copies_each_of_its_three_tensors_in_a_sync_range():
+    """A table is built with three copies to the device, each waited on in
+    its own ``sync.mel.table`` range, on every call (nothing cached on the
+    device), from a config or from a dense bank; one kernel 1 call on a
+    batch builds one table."""
+    cfg = MelConfig(n_mels=16, duration_s=0.5)
+    for build in (lambda: mel.mel_table(cfg, "cpu"),
+                  lambda: mel.MelTable.from_bank(
+                      mel.mel_filterbank(cfg.sample_rate, cfg.n_fft, 16),
+                      "cpu"),
+                  lambda: logmel_standardized(torch.zeros(2, cfg.n_samples),
+                                              cfg)):
+        ranges, _ = _ranges(build)
+        assert len(ranges["sync.mel.table"]) == 3
+
+
 def _tiny_minilm(texts):
     cfg = minilm.MiniLMConfig(hidden=16, layers=1, heads=2, intermediate=32,
                               max_pos=64)
@@ -170,11 +218,11 @@ def test_profile_chain_counts_no_range_copy_as_device_work():
     from vae_hmc_tpu_torch.tools import profile_chain
 
     cpu, cuda = DeviceType.CPU, DeviceType.CUDA
-    events = [_event("stage:train", cpu, 0, 100),
+    events = [_event(P + "stage.train", cpu, 0, 100),
               _event(P + "fit.step", cpu, 5, 60),
               _event("Optimizer.step#Adam.step", cpu, 40, 50),
               _event("aten::mm", cpu, 10, 20),
-              _event("stage:train", cuda, 10, 90),
+              _event(P + "stage.train", cuda, 10, 90),
               _event(P + "fit.step", cuda, 10, 80),
               _event("Optimizer.step#Adam.step", cuda, 60, 80),
               _event("Command Buffer Full", cuda, 20, 25),
@@ -187,7 +235,7 @@ def test_profile_chain_counts_no_range_copy_as_device_work():
     assert busy == 40                   # the bubble 30-60 stays idle
 
     avg = [SimpleNamespace(key=k, self_cpu_time_total=t) for k, t in
-           (("stage:train", 5.0), (P + "fit.step", 9.0), ("aten::mm", 3.0),
+           ((P + "stage.train", 5.0), (P + "fit.step", 9.0), ("aten::mm", 3.0),
             ("aten::add", 7.0), ("gemm_kernel", 0.0))]
     assert [e.key for e in profile_chain._host_ops(avg)] == [
         "aten::add", "aten::mm"]

@@ -300,7 +300,7 @@ def logmel_kernel_job(rank, y, mel_kw):
     spec = power_spectrogram(yt, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
                              power=cfg.power)
     want = mel_db_standardize_plain(
-        spec, mel_ops.mel_filterbank_tensor(cfg, mesh.device),
+        spec, mel_ops.mel_table(cfg, mesh.device).fb,
         ref_max=cfg.ref_max, top_db=mel_ops.effective_top_db(cfg),
         standardize=False)
     return {"max_abs_err": float((got - want).abs().max()),

@@ -51,7 +51,7 @@ from vae_hmc_tpu_torch.ops import mel as mel_ops
 from vae_hmc_tpu_torch.ops.kernels import build
 from vae_hmc_tpu_torch.ops.kernels.distance import (pairwise_dists,
                                                     pairwise_dists_plain)
-from vae_hmc_tpu_torch.ops.kernels.logmel import (logmel_standardized,
+from vae_hmc_tpu_torch.ops.kernels.logmel import (mel_db_standardize,
                                                   mel_db_standardize_plain)
 from vae_hmc_tpu_torch.ops.stft import power_spectrogram
 from vae_hmc_tpu_torch.pipelines.bench_chain import run_core
@@ -91,12 +91,13 @@ def kernel_smoke(dev: torch.device) -> str:
     y = 0.1 * torch.randn((8, cfg.n_samples), generator=gen, device=dev)
     spec = power_spectrogram(y, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
                              power=cfg.power)
-    want = mel_db_standardize_plain(
-        spec, mel_ops.mel_filterbank_tensor(cfg, dev), ref_max=cfg.ref_max,
-        top_db=mel_ops.effective_top_db(cfg),
-        standardize=cfg.per_sample_standardize)
+    table = mel_ops.mel_table(cfg, dev)
+    kw = dict(ref_max=cfg.ref_max, top_db=mel_ops.effective_top_db(cfg),
+              standardize=cfg.per_sample_standardize)
     mel_err = _max_err("kernel 1 mel_db_standardize on 8 waveforms",
-                       logmel_standardized(y, cfg), want, MEL_ATOL)
+                       mel_db_standardize(spec, table, **kw),
+                       mel_db_standardize_plain(spec, table.fb, **kw),
+                       MEL_ATOL)
     return (f"ok (CUDA kernels pairwise_dists and mel_db_standardize built "
             f"with nvcc on {torch.cuda.get_device_name(dev)}; "
             f"dist_err={dist_err:.2e}, mel_err={mel_err:.2e})")

@@ -4,8 +4,8 @@
   - StageTimer: per-stage wall-clock accumulation with a JSON report
     (``timing_<tier>.json``).  Given a CUDA device, a stage ends in a
     synchronize, so its seconds hold the device work it queued and not
-    only the launches; each stage also runs inside a ``stage:<name>``
-    ``annotate`` range, which ``tools/profile_chain`` reads for each
+    only the launches; each stage also runs inside the program's span
+    ``stage.<name>``, which ``tools/profile_chain`` reads for each
     stage's device time;
   - device_trace(): context manager around ``torch.profiler.profile``
     (CPU and, where the build has it, CUDA activity) that writes a
@@ -15,9 +15,10 @@
     only while a profiler runs (a null context otherwise, so a range in a
     hot loop costs one flag check when nothing traces);
   - span() / sync(): the program's own ranges, ``vae:<name>`` at a layer
-    boundary and ``vae:sync.<site>`` around each call that makes the host
-    wait on the device (its duration is the wait; their count is the
-    host-sync count).  The names and the metrics that read them are
+    boundary (``vae:stage.<name>`` around a StageTimer stage) and
+    ``vae:sync.<site>`` around each call that makes the host wait on the
+    device (its duration is the wait; their count is the host-sync
+    count).  The names and the metrics that read them are
     listed in README.md (``core/profiling``);
   - log(): timestamped stderr logging controlled by VAE_HMC_VERBOSE.
 
@@ -53,7 +54,7 @@ class StageTimer:
     def stage(self, name: str, n_items: Optional[int] = None):
         t0 = time.perf_counter()
         try:
-            with annotate(f"stage:{name}"):
+            with span(f"stage.{name}"):
                 yield
                 if self.device is not None:
                     synchronize(self.device)

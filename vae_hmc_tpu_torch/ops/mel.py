@@ -8,6 +8,7 @@ per-sample ref=max and top_db floor, per-sample standardization.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional
 
@@ -106,32 +107,41 @@ def _filterbank_and_bands(sr: int, n_fft: int, n_mels: int, fmin: float,
     return fb, bands, filterbank_weights(fb, bands)
 
 
-def _cached(cfg):
-    """The filterbank, its bands and packed weights for a ``MelConfig`` or
-    ``MfccConfig`` (any config with ``sample_rate``, ``n_fft``, ``n_mels``,
-    ``fmin`` and ``fmax``), cached by those five values."""
-    return _filterbank_and_bands(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
-                                 cfg.fmin, cfg.fmax)
-
-
 def _table(a: np.ndarray, device) -> torch.Tensor:
     """A host table copied to `device` (a wait on the device)."""
     with sync("mel.table"):
         return torch.tensor(a, device=device)
 
 
-def mel_filterbank_tensor(cfg, device) -> torch.Tensor:
-    return _table(_cached(cfg)[0], device)
+@dataclasses.dataclass(frozen=True, eq=False)
+class MelTable:
+    """A mel filterbank on one device, in both forms its readers take:
+    `fb`, the dense (M, F) float32 bank of the plain path, and kernel 1's
+    compact table: `bands`, int32 (M, 2), each row's [lo, hi) of nonzero
+    bins (``filterbank_bands``), and `weights`, float32 (nnz,), the rows'
+    weights over their bands packed in row order (``filterbank_weights``).
+    Each of the three is copied to the device in its own ``mel.table``
+    sync range when the table is built."""
+    fb: torch.Tensor
+    bands: torch.Tensor
+    weights: torch.Tensor
+
+    @classmethod
+    def from_bank(cls, fb, device) -> "MelTable":
+        """The table of an arbitrary dense (M, F) bank held on the host."""
+        fb = np.asarray(fb, np.float32)
+        bands = filterbank_bands(fb)
+        return cls(*(_table(a, device) for a in
+                     (fb, bands, filterbank_weights(fb, bands))))
 
 
-def filterbank_bands_tensor(cfg, device) -> torch.Tensor:
-    """``filterbank_bands`` of the config's filterbank, on `device`."""
-    return _table(_cached(cfg)[1], device)
-
-
-def filterbank_weights_tensor(cfg, device) -> torch.Tensor:
-    """``filterbank_weights`` of the config's filterbank, on `device`."""
-    return _table(_cached(cfg)[2], device)
+def mel_table(cfg, device) -> MelTable:
+    """The ``MelTable`` of the filterbank of a ``MelConfig`` or
+    ``MfccConfig`` (any config with ``sample_rate``, ``n_fft``, ``n_mels``,
+    ``fmin`` and ``fmax``) on `device`; the host side is cached by those
+    five values, the device copies are made anew on each call."""
+    return MelTable(*(_table(a, device) for a in _filterbank_and_bands(
+        cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)))
 
 
 def effective_top_db(cfg: MelConfig) -> Optional[float]:
@@ -167,7 +177,7 @@ def logmel_batch(y: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
     """Waveform batch (B, n_samples) -> log-mel dB (B, n_mels, T)."""
     spec = power_spectrogram(y, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
                              power=cfg.power)
-    mel = apply_mel(spec, mel_filterbank_tensor(cfg, y.device))
+    mel = apply_mel(spec, mel_table(cfg, y.device).fb)
     return power_to_db(mel, ref_max=cfg.ref_max, top_db=effective_top_db(cfg))
 
 

@@ -45,11 +45,8 @@ def mfcc_batch(y: torch.Tensor, cfg: MfccConfig = MfccConfig()) -> torch.Tensor:
     """Waveforms (B, n_samples) -> MFCC (B, n_mfcc, T)."""
     dev = y.device
     spec = power_spectrogram(y, n_fft=cfg.n_fft, hop_length=cfg.hop_length)
-    db = mel_db_standardize(
-        spec, mel_ops.mel_filterbank_tensor(cfg, dev), ref_max=False,
-        top_db=_TOP_DB, standardize=False,
-        bands=mel_ops.filterbank_bands_tensor(cfg, dev),
-        weights=mel_ops.filterbank_weights_tensor(cfg, dev))
+    db = mel_db_standardize(spec, mel_ops.mel_table(cfg, dev), ref_max=False,
+                            top_db=_TOP_DB, standardize=False)
     dct = torch.tensor(dct_ii_matrix(cfg.n_mfcc, cfg.n_mels), device=dev)
     return torch.matmul(dct, db)
 

@@ -64,11 +64,8 @@ def _logmel_raw(y: torch.Tensor, cfg) -> torch.Tensor:
     spec = power_spectrogram(y, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
                              power=cfg.power)
     return mel_db_standardize(
-        spec, mel_ops.mel_filterbank_tensor(cfg, y.device),
-        ref_max=cfg.ref_max, top_db=mel_ops.effective_top_db(cfg),
-        standardize=False,
-        bands=mel_ops.filterbank_bands_tensor(cfg, y.device),
-        weights=mel_ops.filterbank_weights_tensor(cfg, y.device))
+        spec, mel_ops.mel_table(cfg, y.device), ref_max=cfg.ref_max,
+        top_db=mel_ops.effective_top_db(cfg), standardize=False)
 
 
 def logmel_batch_sharded(y, cfg, mesh) -> torch.Tensor:

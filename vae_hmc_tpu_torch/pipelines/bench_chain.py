@@ -11,10 +11,10 @@
   4. KMeans(k=6, n_init=10), then silhouette and Davies-Bouldin (kernel 2)
      and ARI against the synthetic genres.
 Building MiniLM, moving it to the device and one warm-up batch run before
-the timed stages, as in ``bench.py`` (model load is set-up).  Stage
-boundaries synchronize the device, so each stage's seconds are its own;
-each stage also runs inside a ``stage:<name>`` ``core.profiling.annotate``
-range (free when no profiler is on; tools/profile_chain.py reads them).
+the timed stages, as in ``bench.py`` (model load is set-up).  The stages
+are timed by a ``core.profiling.StageTimer``: each ends in a synchronize,
+so its seconds are its own, and runs inside the span ``stage.<name>``
+(free when no profiler is on; tools/profile_chain.py reads them).
 ``compute_dtype="bfloat16"`` trains in bf16 with float32 master weights
 (``bench.py``'s BENCH_FAST mode, non-parity).  Returns the stage
 seconds, the quality numbers, the lyrics backend, the kernels' launches
@@ -25,7 +25,6 @@ lyrics embedding, ``mu``, genre codes, track ids) and its corpus
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict
 
 import numpy as np
@@ -34,7 +33,7 @@ import torch
 from vae_hmc_tpu_torch.cluster.kmeans import kmeans
 from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig, KMeansConfig, MelConfig
 from vae_hmc_tpu_torch.core.device import resolve_device, synchronize
-from vae_hmc_tpu_torch.core.profiling import annotate
+from vae_hmc_tpu_torch.core.profiling import StageTimer
 from vae_hmc_tpu_torch.metrics import external, internal
 from vae_hmc_tpu_torch.models.api import train_conv_mm_vae
 from vae_hmc_tpu_torch.ops.kernels import build
@@ -47,8 +46,10 @@ MINILM_BATCH = 128              # texts per MiniLM forward (bench.py's)
 
 
 def _lyrics_encoder(backend: str, texts, dev):
-    """-> (backend name, encode(texts) -> (N, 384) tensor on `dev`)."""
+    """-> (backend name, encode(texts) -> (N, 384) tensor on `dev`), the
+    device idle on return: no set-up work runs into the timed stages."""
     if backend == "hashed":
+        synchronize(dev)
         return "hashed", lambda t: torch.as_tensor(
             embed.hashed_embedding(t, 384), device=dev)
     if backend != "minilm":
@@ -66,6 +67,7 @@ def _lyrics_encoder(backend: str, texts, dev):
                                    to_host=False)
 
     encode(texts[:MINILM_BATCH])          # warm-up, outside the timed stages
+    synchronize(dev)
     return name, encode
 
 
@@ -80,11 +82,10 @@ def run_core(n_tracks: int = 2924, epochs: int = 25, device="cuda",
     ds = synthetic.make_dataset(n_tracks, seed=seed, lyrics_coverage=0.9)
     texts = [ds.lyrics[i] or "" for i in range(n_tracks)]
     backend, encode_lyrics = _lyrics_encoder(lyrics_backend, texts, dev)
-    synchronize(dev)
     launches0 = build.launch_counts()
+    timer = StageTimer(dev)
 
-    t0 = time.perf_counter()
-    with annotate("stage:features"):
+    with timer.stage("features"):
         source = SyntheticSource(ds, seed=seed)
         x_mel, ids, report = build_logmel(source, mel_cfg,
                                           device_batch=device_batch,
@@ -96,31 +97,23 @@ def run_core(n_tracks: int = 2924, epochs: int = 25, device="cuda",
             raise RuntimeError(f"feature build dropped {n_tracks - len(ids)} "
                                f"rows: {bad}")
         x_mel = x_mel[..., None]                      # (N, n_mels, T, 1)
-        synchronize(dev)
-    t1 = time.perf_counter()
 
-    with annotate("stage:lyrics"):
+    with timer.stage("lyrics"):
         has = np.asarray([1.0 if ds.lyrics[i] else 0.0
                           for i in range(n_tracks)], np.float32)
         lyr = encode_lyrics(texts) * torch.as_tensor(has, device=dev)[:, None]
-        synchronize(dev)
-    t2 = time.perf_counter()
 
-    with annotate("stage:train"):
+    with timer.stage("train"):
         _model, history, mu = train_conv_mm_vae(x_mel, lyr, has, vae_cfg,
                                                 device=dev)
-        synchronize(dev)
-    t3 = time.perf_counter()
 
-    with annotate("stage:cluster_metrics"):
+    with timer.stage("cluster_metrics"):
         km = kmeans(mu, KMeansConfig(n_clusters=6, n_init=10, seed=seed),
                     device=dev)
         genre_idx = np.asarray([synthetic.GENRES.index(g) for g in ds.genres])
         sil = internal.silhouette(mu, km.labels, device=dev)
         dbi = internal.davies_bouldin(mu, km.labels, device=dev)
         ari = external.adjusted_rand_index(km.labels, genre_idx)
-        synchronize(dev)
-    t4 = time.perf_counter()
 
     launches = {k: v - launches0[k] for k, v in build.launch_counts().items()}
     return {
@@ -129,11 +122,8 @@ def run_core(n_tracks: int = 2924, epochs: int = 25, device="cuda",
         "feature_shape": list(x_mel.shape),
         "mu_shape": list(mu.shape),
         "report_ok": report.ok_count(),
-        "seconds_total": t4 - t0,
-        "seconds_features": t1 - t0,
-        "seconds_lyrics": t2 - t1,
-        "seconds_train": t3 - t2,
-        "seconds_cluster_metrics": t4 - t3,
+        "seconds_total": sum(timer.stages.values()),
+        **{f"seconds_{k}": v for k, v in timer.stages.items()},
         "lyrics_backend": backend,
         "train_final_loss": history[-1]["total"],
         "history": history,

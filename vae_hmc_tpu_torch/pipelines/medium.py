@@ -51,9 +51,8 @@ from vae_hmc_tpu_torch.core.align import (align_secondary_to_primary,
 from vae_hmc_tpu_torch.core.config import (ConvMMVaeConfig, MelConfig,
                                            SweepConfig, TextEmbedConfig,
                                            Workspace, asdict)
-from vae_hmc_tpu_torch.core.device import (as_rows, resolve_device,
-                                           synchronize)
-from vae_hmc_tpu_torch.core.profiling import StageTimer, annotate, log
+from vae_hmc_tpu_torch.core.device import as_rows, resolve_device
+from vae_hmc_tpu_torch.core.profiling import StageTimer, log
 from vae_hmc_tpu_torch.ops.pca import PCA
 from vae_hmc_tpu_torch.ops import scaler
 from vae_hmc_tpu_torch.viz import plots
@@ -767,33 +766,27 @@ def scripts_11_13_16(source, ws: Workspace, mu: torch.Tensor,
     posterior means `mu` (N, latent) and log-mel `features` of the tracks
     `ids` (``run_core``'s ``"tensors"``, with its ``"source"``), the lyrics
     embedded from `source`, genres from `source`.  One RepData per
-    representation is shared by 13 and 16.  Each script runs in a
-    ``stage:<name>`` profiler range and ends in a synchronize.
+    representation is shared by 13 and 16.  Each script is a
+    ``StageTimer`` stage (the span ``stage.<name>``; its seconds hold the
+    device work it queued).
     -> {"seconds", "rows13", "rows16", "reps", "lyrics_backend"}."""
     dev = resolve_device(device)
     genre_map = {int(i): str(g) for i, g in zip(source.track_ids,
                                                 source.genres)}
-    t = [time.perf_counter()]
-    with annotate("stage:representations"):
+    timer = StageTimer(dev)
+    with timer.stage("representations"):
         lyr = build_lyrics_embeddings(source, ws, device=dev)
         reps = _load_reps(ws, genre_map, arrays={
             "vae_mm_latents": (mu, ids),
             "baseline_mel_flat": (features, ids),
             "baseline_lyrics_only": (lyr["emb"], lyr["ids"])}, device=dev)
-        synchronize(dev)
-    t.append(time.perf_counter())
-    with annotate("stage:script13"):
+    with timer.stage("script13"):
         rows13 = cluster_and_evaluate(ws, genre_map, n_clusters, reps=reps,
                                       device=dev)
-        synchronize(dev)
-    t.append(time.perf_counter())
-    with annotate("stage:script16"):
+    with timer.stage("script16"):
         rows16 = full_clustering_sweep(ws, genre_map, cfg, reps=reps,
                                        device=dev)
-        synchronize(dev)
-    t.append(time.perf_counter())
-    names = ("seconds_representations", "seconds_script13", "seconds_script16")
-    seconds = {k: t[i + 1] - t[i] for i, k in enumerate(names)}
-    seconds["seconds_total"] = t[-1] - t[0]
+    seconds = {f"seconds_{k}": v for k, v in timer.stages.items()}
+    seconds["seconds_total"] = sum(timer.stages.values())
     return {"seconds": seconds, "rows13": rows13, "rows16": rows16,
             "reps": reps, "lyrics_backend": lyr["backend"]}

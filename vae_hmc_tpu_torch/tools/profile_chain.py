@@ -8,7 +8,7 @@ to warm up (library loads, cuDNN heuristics, the kernels' build, the first
 optimizer's imports) and prints its stage seconds, the cold ones; then runs it again
 under ``torch.profiler`` with CPU and CUDA activity and prints, for that
 warm run: the stage seconds; host ops by self time; each stage's device
-time (the kernels launched inside its ``stage:*`` range); the device's busy
+time (the device activity inside its ``vae:stage.*`` span); the device's busy
 time and idle share over the run; and device time by kernel.  Then, with
 the same breakdown, the medium tier's scripts 11, 13 and 16 on that run's
 tensors (``pipelines.medium.scripts_11_13_16``, as ``chip_smoke.py``
@@ -45,6 +45,7 @@ EPOCHS = 1
 TOP = 25                     # rows of each ranking
 # device functions of csrc/logmel.cu and csrc/distance.cu
 PORT_KERNELS = ("mel_db_cluster", "pairwise_tile", "reduce_slices")
+STAGE_SPAN = profiling.SPAN_PREFIX + "stage."    # StageTimer's spans
 STAGE_KEYS = ("seconds_features", "seconds_lyrics", "seconds_train",
               "seconds_cluster_metrics", "seconds_total")
 
@@ -126,7 +127,8 @@ def _report(prof, seconds, launches, wall_s: float, top: int) -> None:
     # (each stage ends with a synchronize; backward kernels are launched from
     # autograd's own thread, so they are not children of the stage range)
     for e in events:
-        if e.name.startswith("stage:") and e.device_type != DeviceType.CUDA:
+        if (e.name.startswith(STAGE_SPAN)
+                and e.device_type != DeviceType.CUDA):
             lo, hi = e.time_range.start, e.time_range.end
             print(f"{e.name}: wall {(hi - lo) / 1e3:.3f} ms, device busy "
                   f"{_union_us(dev_iv, lo, hi) / 1e3:.3f} ms")
@@ -149,16 +151,16 @@ def _report(prof, seconds, launches, wall_s: float, top: int) -> None:
 
 def _host_ops(averages) -> list:
     """The host ops of `averages` with self time, the most first; not the
-    program's ranges (``stage:*`` and ``vae:*``), which are no ops."""
+    program's ranges (``vae:*``), which are no ops."""
     host = [e for e in averages if e.self_cpu_time_total > 0
-            and not e.key.startswith(("stage:", profiling.SPAN_PREFIX))]
+            and not e.key.startswith(profiling.SPAN_PREFIX)]
     return sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)
 
 
 def _device_events(events) -> list:
     """Device activity: kernels, copies and fills.  Not the copies the
-    profiler draws on the device timeline of host ranges (``stage:*``, the
-    program's ``vae:*``, the optimizer's), which carry a host event's name
+    profiler draws on the device timeline of host ranges (the program's
+    ``vae:*``, the optimizer's), which carry a host event's name
     and span the kernels launched inside the range and the gaps between
     them; nor the launch queue's "Command Buffer Full"."""
     host = {e.name for e in events if e.device_type != DeviceType.CUDA}
