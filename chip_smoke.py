@@ -14,7 +14,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      replays, CUDA events); then the fit's Adam kernel against torch's
      foreach Adam on the conv VAE's 32 full-width tensors (lyrics 384 and
      Moonlight's 2,048 wide), 5 steps, one launch a step, timed with torch's
-     fused Adam as the yardstick (CUDA events around a loop);
+     fused Adam as the yardstick (CUDA events around a loop); then each of
+     the decoder's three ConvTranspose2d(4, 2, 1) forwards alone at batch
+     64 and 44, ``F.conv_transpose2d`` against the phase form the float32
+     fit runs (``models/conv_mm_vae.phase_conv_transpose2d``), under
+     cuDNN's heuristic and its measured pick (a subprocess each), in ms and
+     TFLOP/s, failing where the phase form leaves float64 by more than 4
+     times the transposed conv's own error;
   3. run the main path once at full model width (``run_core``: the medium
      tier's 2,924 synthetic 15 s tracks -> (128, 646) log-mel -> MiniLM
      lyrics embeddings (synthetic real-shaped weights) -> full ConvMMVAE,
@@ -104,15 +110,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      (``HARD_CVAE``, 464 wide, 6-wide condition), 4 epochs each, against
      (a)'s; (b) and (c) each end in one sweep cell (KMeans(k=6), the
      silhouette from kernel 2's distances) on rank 0.  (a) also runs the
-     split witness: (b)'s step in one process, each batch's rows in the
-     two calls that (b)'s ranks make.  The conv history of (b) is held to
-     the witness within 5e-5 relative and 1e-6, those of (b) and (c) to
-     (a)'s, and (c)'s to the witness, within 5e-4 of the total (the
-     roundoff of the other split); the dense and hard ones within 5e-5
-     relative and 1e-6.  Every rank's trained replica must equal rank 0's
-     (parameter sums), and a planted fault, (b)'s fit with the gradient
-     all-reduce skipped, must give replicas that differ; its history's
-     gaps are logged.  The latents must be
+     split witness, (b)'s step in one process (each batch's rows in the
+     two calls that (b)'s ranks make), and the fit with one initial weight
+     moved 1 ulp up, for each of three weights.  These fits, (a)'s and the
+     nondeterministic one differ in roundoff only; their largest pairwise
+     gap, column by column, times 3 is the limit to which the conv
+     histories of (b) and (c) are held to (a)'s, and (c)'s to the
+     witness's; (b)'s is held to the witness within 5e-5 relative and
+     1e-6, the dense and hard ones to (a)'s likewise.  Every rank's
+     trained replica must equal rank 0's (parameter sums), and a planted
+     fault, (b)'s fit with the gradient all-reduce skipped, must give
+     replicas that differ and a history outside the roundoff limits
+     against (a)'s and the witness's.  The latents must be
      (2924, 32), finite and the same on every rank, and KMeans restarts
      on (a)'s latents (n_init 10, padded to 12 on 4 ranks; 12 on 1 and 2)
      the same labels and inertia on 1, 2 and 4 ranks.  It logs ms a step,
@@ -888,6 +897,89 @@ def phase_adam(dev) -> dict:
             "bound_by": "bytes", "library_ms": conv["library_ms"],
             "shape": [conv["tensors"], conv["params"]], "moonlight": out[
                 "moonlight"]}
+
+
+DECONV_BATCHES = (64, 44)         # the fit's batch and its last step's rows
+DECONV_TIMEOUT_S = 300           # phase 2: one deconv probe subprocess
+
+
+def deconv_probe(mode: str) -> None:
+    """Each of the full-width ConvMMVAE's three ConvTranspose2d(4, 2, 1)
+    forwards alone at DECONV_BATCHES: ``F.conv_transpose2d`` against the
+    decoder's phase form (``phase_conv_transpose2d``), each timed
+    (``time_ms``) and held to ``F.conv_transpose2d`` in float64 on the
+    card; cuDNN picks engines by its heuristic (`mode` "heuristic") or by
+    timing them (`mode` "measured": the fit's ``measured_conv_engines``).
+    torch keeps the plan a conv shape first ran for the whole process, so
+    each mode runs in a process of its own (``phase_deconv``); prints one
+    JSON line, a row a layer and batch."""
+    import torch
+    import torch.nn.functional as F
+    sys.path.insert(0, str(ROOT))
+    from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig
+    from vae_hmc_tpu_torch.core.device import (measured_conv_engines,
+                                               resolve_device)
+    from vae_hmc_tpu_torch.models.api import build_conv_mm_vae
+    from vae_hmc_tpu_torch.models.conv_mm_vae import phase_conv_transpose2d
+
+    dev = resolve_device("cuda")
+    model = build_conv_mm_vae(ConvMMVaeConfig(), 128, 646, 384).to(dev)
+    (h, w), rows = model.enc_hw, []
+    gen = torch.Generator(device=dev).manual_seed(19)
+    with (measured_conv_engines() if mode == "measured"
+          else contextlib.nullcontext()), torch.no_grad():
+        for i, deconv in enumerate(model.dec_convs):
+            wt, bias = deconv.weight, deconv.bias
+            for b in DECONV_BATCHES:
+                x = torch.randn((b, deconv.in_channels, h << i, w << i),
+                                generator=gen, device=dev).relu_()
+                want = F.conv_transpose2d(x.double(), wt.double(),
+                                          bias.double(), stride=2, padding=1)
+                fns = {"transposed": lambda: F.conv_transpose2d(
+                           x, wt, bias, stride=2, padding=1),
+                       "phase": lambda: phase_conv_transpose2d(x, wt, bias)}
+                err = {k: float((fn().double() - want).abs().max())
+                       for k, fn in fns.items()}
+                ms = {k: time_ms(fn) for k, fn in fns.items()}
+                flops = (2.0 * b * deconv.in_channels * deconv.out_channels
+                         * 16 * x.shape[2] * x.shape[3])
+                rows.append({"layer": i, "batch": b, "mode": mode,
+                             "shape": list(x.shape), "gflop": flops / 1e9,
+                             "ms": ms, "err": err,
+                             "tflops": {k: flops / v / 1e9
+                                        for k, v in ms.items()}})
+    print(json.dumps(rows), flush=True)
+
+
+def phase_deconv() -> list:
+    """Phase 2's decoder probe: ``deconv_probe`` in a subprocess a mode;
+    fails where the phase form leaves float64 by more than 4 times the
+    transposed conv's own error.  -> the rows of both modes."""
+    log("decoder ConvTranspose2d(4, 2, 1) forwards: transposed vs phase "
+        "form, heuristic and measured engines")
+    rows = []
+    for mode in ("heuristic", "measured"):
+        proc = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.deconv_probe({mode!r})"], cwd=ROOT,
+            capture_output=True, text=True, timeout=DECONV_TIMEOUT_S)
+        if proc.returncode != 0:
+            for line in proc.stderr.splitlines()[-30:]:
+                log(f"  | {line}")
+            fail(f"deconv probe ({mode}) exited {proc.returncode}")
+        rows += json.loads(proc.stdout.strip().splitlines()[-1])
+    for r in rows:
+        ms, tf, err = r["ms"], r["tflops"], r["err"]
+        log(f"  dec_convs.{r['layer']} {r['shape']} {r['mode']}: transposed "
+            f"{ms['transposed']:.4f} ms ({tf['transposed']:.1f} TFLOP/s), "
+            f"phase {ms['phase']:.4f} ms ({tf['phase']:.1f} TFLOP/s), "
+            f"{r['gflop']:.2f} GFLOP; max abs err against float64 "
+            f"{err['transposed']:.3e} / {err['phase']:.3e}")
+        if not err["phase"] <= 4.0 * err["transposed"]:
+            fail(f"dec_convs.{r['layer']} at batch {r['batch']} ({r['mode']})"
+                 f": the phase form is {err['phase']:.3e} off float64, the "
+                 f"transposed conv {err['transposed']:.3e}")
+    return rows
 
 
 def phase_main_path(dev):
@@ -1978,6 +2070,10 @@ def phase_stft_fft(dev) -> list:
 PARALLEL_TIMEOUT_S = 120        # phase 10: process-group timeout
 PARALLEL_JOIN_S = 600           # phase 10: join timeout of one spawn
 P10_RESTARTS = 12               # phase 10: KMeans n_init 10 padded on 4 ranks
+# phase 10 (a): the weights moved 1 ulp up (the first element of each), one
+# fit each, members of the roundoff ensemble
+P10_NUDGED = ("dec_fc1.weight", "enc_convs.0.weight", "mu.bias")
+P10_SPREAD_FACTOR = 3.0         # phase 10: conv limit, x the ensemble's spread
 
 
 def _p10_inputs(dev):
@@ -2087,13 +2183,27 @@ def _p10_split_fit(model, arrays, cfg, n_parts: int) -> list:
     return [{"epoch": 1, "total": avg[0], "recon": avg[1], "kl": avg[2]}]
 
 
+def _p10_nudged_fit(model, name: str, arrays, **kw) -> list:
+    """(a)'s fit with the first element of parameter ``name`` moved 1 ulp
+    up before it starts -> its history, a member of the roundoff
+    ensemble."""
+    import torch
+    from vae_hmc_tpu_torch.models.train import fit
+    with torch.no_grad():
+        w = dict(model.named_parameters())[name].view(-1)
+        w[0] = torch.nextafter(w[0], torch.full_like(w[0], math.inf))
+    return fit(model, arrays, **kw).history
+
+
 def p10_world_one(rank: int) -> dict:
     """Phase 10 (a), one rank under NCCL, mesh (1, 1): the medium corpus's
     standardized log-mel by synth_features_sharded (kernel 1) against
     build_logmel; dp_fit of the full-width ConvMMVAE, 1 epoch, against the
-    single-process fit of the same weights and streams; the same through
-    train_conv_mm_vae(mesh=) (history and latents, the reference of (b)
-    and (c)); KMeans restarts on its latents; the dense and hard fits."""
+    single-process fit of the same weights and streams; the roundoff
+    ensemble's other fits (nondeterministic cuDNN, the split witness, the
+    P10_NUDGED fits); the same through train_conv_mm_vae(mesh=) (history
+    and latents, the reference of (b) and (c)); KMeans restarts on its
+    latents; the dense and hard fits."""
     import torch
     from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig, MelConfig
     from vae_hmc_tpu_torch.models import api
@@ -2131,6 +2241,9 @@ def p10_world_one(rank: int) -> dict:
     torch.backends.cudnn.deterministic = True
     split = _p10_split_fit(api.build_conv_mm_vae(cfg, 128, 646, 384).to(dev),
                            (x, lyr, mask), cfg, 2)
+    nudged = {name: _p10_nudged_fit(api.build_conv_mm_vae(
+        cfg, 128, 646, 384).to(dev), name, (x, lyr, mask), **kw)
+        for name in P10_NUDGED}
     (_, history, mu), api_s, api_k, api_b, api_peak = _p10_timed(
         dev, lambda: api.train_conv_mm_vae(x, lyr, mask, cfg, mesh=mesh))
     model.eval()
@@ -2143,6 +2256,7 @@ def p10_world_one(rank: int) -> dict:
             "feature_launches": feat_k, "dp_history": dp.history,
             "fit_history": single.history, "fit_s": fit_s,
             "spread_history": spread.history, "split_history": split,
+            "nudged_histories": nudged,
             "dp_s": dp_s, "dp_bytes": dp_b,
             "dp_peak": dp_peak, "dp_launches": dp_k,
             "history": history, "api_s": api_s, "api_bytes": api_b,
@@ -2247,34 +2361,47 @@ def p10_ranks(rank: int, shape, latents_a) -> dict:
             **_p10_dense_hard(mesh, xd, xh, cond)}
 
 
-def _hist_gaps(got, want, rtol: float, atol: float, of_total: float = 0.0):
+def _hist_gaps(got, want, rtol: float, atol: float, limits=None):
     """Two histories column by column -> (the largest absolute gap of each
-    column, the first gap past atol + rtol |want| + of_total |want's
-    total| or None)."""
+    column, the first gap past atol + rtol |want| + the column's entry of
+    ``limits`` or None)."""
     if [h["epoch"] for h in got] != [h["epoch"] for h in want]:
         return None, f"epochs {got} vs {want}"
+    limits = limits or {}
     gaps, bad = {k: 0.0 for k in ("total", "recon", "kl")}, None
     for g, w in zip(got, want):
         for k in gaps:
             gap = abs(g[k] - w[k])
             gaps[k] = max(gaps[k], gap)
-            if bad is None and not gap <= atol + rtol * abs(w[k]) + \
-                    of_total * abs(w["total"]):
+            lim = limits.get(k, 0.0)
+            if bad is None and not gap <= atol + rtol * abs(w[k]) + lim:
                 bad = (f"{k} {g[k]!r} vs {w[k]!r} (rtol {rtol}, atol "
-                       f"{atol}, {of_total} of the total)")
+                       f"{atol}, limit {lim!r})")
     return gaps, bad
 
 
 def _hist_close(what: str, got, want, rtol: float, atol: float,
-                of_total: float = 0.0) -> dict:
+                limits=None) -> dict:
     """Fail unless two histories agree (``_hist_gaps``); -> the largest
     absolute gap of each column."""
-    gaps, bad = _hist_gaps(got, want, rtol, atol, of_total)
+    gaps, bad = _hist_gaps(got, want, rtol, atol, limits)
     if bad is not None:
         fail(f"{what}: {bad}")
     log(f"  {what}: histories agree, largest abs gaps {json.dumps(gaps)} "
-        f"(rtol {rtol}, atol {atol}, {of_total} of the total)")
+        f"(rtol {rtol}, atol {atol}, limits {json.dumps(limits or {})})")
     return gaps
+
+
+def _roundoff_limits(members: dict, factor: float) -> dict:
+    """Histories of fits of the same model, data and streams that differ
+    only in roundoff (the ensemble) -> each column's limit: ``factor`` x
+    the largest gap between two members in any epoch."""
+    hists = list(members.values())
+    return {k: factor * max((abs(g[k] - w[k])
+                             for i, one in enumerate(hists)
+                             for other in hists[i + 1:]
+                             for g, w in zip(one, other)), default=0.0)
+            for k in ("total", "recon", "kl")}
 
 
 def phase_parallel() -> dict:
@@ -2324,6 +2451,26 @@ def phase_parallel() -> dict:
         f"{json.dumps(gaps)}; witness {a['split_history']}")
     _hist_close("(a) train_conv_mm_vae(mesh) vs dp_fit", a["history"],
                 a["dp_history"], 1e-6, 0.0)
+    for name, hist in a["nudged_histories"].items():
+        gaps = {k: abs(hist[0][k] - a["history"][0][k])
+                for k in ("total", "recon", "kl")}
+        log(f"  (a) {name} 1 ulp up against (a): abs gaps "
+            f"{json.dumps(gaps)}")
+    # The conv histories of (b) and (c) leave (a)'s by the fit's roundoff,
+    # which one epoch amplifies: a 1-ulp nudge of one initial weight moves
+    # the history as far as another split of the batch does.  The ensemble
+    # of such fits measures it in this run; a parallel fit adds roundoff of
+    # its own each step (the DP split, (c)'s TP sums), so its limit is
+    # P10_SPREAD_FACTOR x the ensemble's largest pairwise gap.
+    ensemble = {"(a)": a["history"], "nondeterministic cuDNN":
+                a["spread_history"], "the split witness": a["split_history"],
+                **{f"{name} 1 ulp up": hist
+                   for name, hist in a["nudged_histories"].items()}}
+    limits = _roundoff_limits(ensemble, P10_SPREAD_FACTOR)
+    log(f"  (a) conv history limits, {P10_SPREAD_FACTOR} x the largest "
+        f"pairwise gap of {len(ensemble)} fits that differ in roundoff "
+        f"only: {json.dumps(limits)}")
+    out["limits"] = limits
     log(f"  (a) dp_fit {1e3 * a['dp_s'] / steps:.2f} ms a step ({steps} "
         f"steps, deterministic cuDNN; the single-process fit "
         f"{1e3 * a['fit_s'] / steps:.2f}), all-reduce "
@@ -2367,14 +2514,13 @@ def phase_parallel() -> dict:
             fail(f"phase 10 ({part}): latents {r0['latents'].shape} or "
                  "non-finite")
         # (a) runs each batch in one call, (b) and (c) in a call a rank on
-        # its rows; the split witness runs (b)'s calls in one process.  The
-        # data-parallel step is held to the witness at 5e-5 and to (a)
-        # within 5e-4 of the total, the roundoff of the other split
-        # (the spread logged in (a)); (c)'s tensor-parallel sums add theirs.
+        # its rows; the split witness runs (b)'s calls in one process, so
+        # (b) equals it to rounding, and (b) and (c) are held to (a) and (c)
+        # to the witness within the measured roundoff limits.
         r0["gaps"] = _hist_close(f"({part}) conv vs (a)", r0["history"],
-                                 a["history"], 5e-5, 1e-6, of_total=5e-4)
-        witness = ((5e-5, 1e-6, 0.0) if part == "b"
-                   else (5e-5, 1e-6, 5e-4))
+                                 a["history"], 0.0, 1e-6, limits)
+        witness = ((5e-5, 1e-6, None) if part == "b"
+                   else (0.0, 1e-6, limits))
         r0["witness_gaps"] = _hist_close(
             f"({part}) conv vs the split witness", r0["history"],
             a["split_history"], *witness)
@@ -2388,13 +2534,16 @@ def phase_parallel() -> dict:
             log("  (b) planted fault (gradient all-reduce skipped) refused: "
                 "the replicas differ")
             r0["fault_gaps"] = {}
-            for what, want, tol in (("the split witness", a["split_history"],
-                                     witness),
-                                    ("(a)", a["history"], (5e-5, 1e-6, 5e-4))):
-                gaps, bad = _hist_gaps(fault, want, *tol)
+            for what, want in (("the split witness", a["split_history"]),
+                               ("(a)", a["history"])):
+                gaps, bad = _hist_gaps(fault, want, 0.0, 1e-6, limits)
                 r0["fault_gaps"][what] = gaps
-                log(f"  (b) planted fault's history against {what}: "
-                    f"{'refused' if bad else 'passes'}, largest abs gaps "
+                if bad is None:
+                    fail(f"phase 10 (b): the planted fault's history passes "
+                         f"the roundoff limits against {what} (gaps "
+                         f"{json.dumps(gaps)})")
+                log(f"  (b) planted fault's history against {what}: refused "
+                    f"by the roundoff limits, largest abs gaps "
                     f"{json.dumps(gaps)}")
         log(f"  ({part}) KMeans(k=6) restarts on (a)'s latents: labels and "
             f"inertia {r0['inertia_a']:.6f} as at world size 1")
@@ -2530,6 +2679,7 @@ def main() -> None:
     kernels = [{**phase_logmel(dev), **phase_logmel_mfcc(dev),
                 **phase_logmel_file_rows(dev)},
                phase_distance(dev, lyrics_rows, file_shapes), phase_adam(dev)]
+    phase_deconv()
     launches, tensors, source = phase_main_path(dev)
     sweep = phase_medium_sweep(dev, tensors, source, lyrics_rows)
     del tensors, source

@@ -3,7 +3,8 @@ card (kernel 1 also in the MFCC mode at the easy and hard tiers' frame
 counts), the main path and the three tiers through both kernels at a small
 size, MiniLM, MFCC stats, the scripts 13/16 sweep, the bf16 train step and
 the full-width float32 conv step on cuDNN's measured engines on the card
-against the CPU, a resumed dense fit against a straight one, one
+against the CPU, the full-width decoder's phase-form deconvs (float32 only)
+against its transposed ones, a resumed dense fit against a straight one, one
 full-width MLA and MoE layer of the MoE LM encoder in bf16 against the
 float32 reference, and the fit's Adam kernel against torch's foreach Adam,
 through a resume, and on what it refuses.
@@ -618,6 +619,43 @@ def test_conv_step_under_measured_engines_matches_float64(gpu, monkeypatch):
           f"{worst} {gaps[worst]:.3e}, median "
           f"{float(np.median(list(gaps.values()))):.3e}")
     assert gaps[worst] <= 1e-4, gaps
+
+
+def test_full_width_decode_runs_the_phase_form_in_float32_only(
+        gpu, monkeypatch):
+    """A batch-64 full-width (128 x 646) float32 decode on the card runs
+    dec_convs.0 and .1 as four output phases and the 1-channel dec_convs.2
+    transposed (``phase_deconv_engages``), within float32 rounding of the
+    decode with every deconv transposed; a bf16 decode runs no phase."""
+    from vae_hmc_tpu_torch.core.config import ConvMMVaeConfig
+    from vae_hmc_tpu_torch.core.device import resolve_device
+    from vae_hmc_tpu_torch.models import conv_mm_vae as cmv
+    from vae_hmc_tpu_torch.models.api import build_conv_mm_vae
+    resolve_device(gpu)                                   # parity mode
+    torch.manual_seed(19)
+    model = build_conv_mm_vae(ConvMMVaeConfig(), 128, 646, 384).to(gpu)
+    z = torch.randn(64, 32, device=gpu)
+    outs = {}
+    with torch.no_grad():
+        for path in ("phase", "transposed"):
+            if path == "transposed":
+                monkeypatch.setattr(cmv, "phase_deconv_engages",
+                                    lambda h, deconv: False)
+            cmv.reset_deconv_paths()
+            outs[path] = model.decode(z)
+            assert cmv.deconv_path_counts() == (
+                {"phase": 2, "transposed": 1} if path == "phase"
+                else {"phase": 0, "transposed": 3})
+        monkeypatch.undo()
+        cmv.reset_deconv_paths()
+        xbf = model.to(torch.bfloat16).decode(z.to(torch.bfloat16))
+        assert cmv.deconv_path_counts() == {"phase": 0, "transposed": 3}
+    got, want = outs["phase"], outs["transposed"]
+    assert got.shape == want.shape == xbf.shape == (64, 128, 646, 1)
+    gap = float((got - want).norm() / want.norm())
+    print(f"full-width decode, phase form vs transposed: {gap:.3e} of the "
+          f"norm, max abs {float((got - want).abs().max()):.3e}")
+    assert gap <= 1e-5
 
 
 def test_dense_resume_on_gpu_bit_for_bit(gpu, tmp_path):

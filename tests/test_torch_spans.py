@@ -241,6 +241,42 @@ def test_profile_chain_counts_no_range_copy_as_device_work():
         "aten::add", "aten::mm"]
 
 
+def test_profile_chain_sums_the_device_copies_of_each_range():
+    from torch.autograd import DeviceType
+
+    from vae_hmc_tpu_torch.tools import profile_chain
+
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = [_event(P + "model.deconv", cpu, 0, 10),
+              _event(P + "model.deconv", cuda, 5, 25),
+              _event(P + "model.deconv", cuda, 40, 46),
+              _event(P + "fit.step", cuda, 0, 50),
+              _event("Optimizer.step#Adam.step", cuda, 60, 80),
+              _event("conv_kernel", cuda, 5, 25)]
+    assert profile_chain._range_copies(events) == {
+        P + "model.deconv": (26, 2), P + "fit.step": (50, 1)}
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_decoder_opens_model_deconv_on_the_phase_form_only(monkeypatch, on):
+    """``vae:model.deconv`` is the range of a phase-form deconv forward: a
+    ConvMMVAE forward opens one a deconv where the rule takes the phase
+    form (switched on here for the CPU), none on the transposed path."""
+    from vae_hmc_tpu_torch.models import conv_mm_vae as cmv
+
+    if on:
+        monkeypatch.setattr(cmv, "phase_deconv_engages",
+                            lambda h, deconv: True)
+    torch.manual_seed(0)
+    model = cmv.ConvMMVAE(n_mels=16, n_frames=20, channels=(4, 8, 8),
+                          fc_dim=8, latent_dim=2, lyrics_dim=6,
+                          lyrics_proj_dim=4)
+    x, lyr, m = torch.randn(2, 16, 20, 1), torch.randn(2, 6), torch.ones(2, 1)
+    ranges, out = _ranges(lambda: model(x, lyr, m, eps=torch.zeros(2, 2)))
+    assert out[0].shape == (2, 16, 20, 1)
+    assert len(ranges.get("model.deconv", [])) == (3 if on else 0)
+
+
 def test_off_path_builds_no_range(monkeypatch):
     """With no profiler running, spans are null contexts: the port's
     ``record_function`` is never called."""

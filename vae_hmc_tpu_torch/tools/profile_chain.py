@@ -8,11 +8,13 @@ to warm up (library loads, cuDNN heuristics, the kernels' build, the first
 optimizer's imports) and prints its stage seconds, the cold ones; then runs it again
 under ``torch.profiler`` with CPU and CUDA activity and prints, for that
 warm run: the stage seconds; host ops by self time; each stage's device
-time (the device activity inside its ``vae:stage.*`` span); the device's busy
-time and idle share over the run; and device time by kernel.  Then, with
-the same breakdown, the medium tier's scripts 11, 13 and 16 on that run's
-tensors (``pipelines.medium.scripts_11_13_16``, as ``chip_smoke.py``
-phase 4); and the whole medium tier, ``run_medium_pipeline`` at the same
+time (the device activity inside its ``vae:stage.*`` span); the device
+time of the copies the profiler draws for the program's innermost ranges
+(``vae:model.deconv``: the decoder's phase-form deconv forwards); the
+device's busy time and idle share over the run; and device time by
+kernel.  Then, with the same breakdown, the medium tier's scripts 11, 13
+and 16 on that run's tensors (``pipelines.medium.scripts_11_13_16``, as
+``chip_smoke.py`` phase 4); and the whole medium tier, ``run_medium_pipeline`` at the same
 size (as ``chip_smoke.py`` phase 5), by the stages of its
 ``timing_medium.json``, with its peak device memory.  Then the easy and
 hard tiers, ``run_easy_pipeline`` and ``run_hard_pipeline`` at 2,924
@@ -132,6 +134,10 @@ def _report(prof, seconds, launches, wall_s: float, top: int) -> None:
             lo, hi = e.time_range.start, e.time_range.end
             print(f"{e.name}: wall {(hi - lo) / 1e3:.3f} ms, device busy "
                   f"{_union_us(dev_iv, lo, hi) / 1e3:.3f} ms")
+    print("device copies of the program's ranges (innermost range a launch):")
+    for name, (t, n) in sorted(_range_copies(events).items(),
+                               key=lambda kv: -kv[1][0]):
+        print(f"  {t / 1e3:10.3f} ms  {n:6d} copies  {name}")
     busy_us = _union_us(dev_iv)
     wall_us = wall_s * 1e6
     print(f"device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
@@ -155,6 +161,21 @@ def _host_ops(averages) -> list:
     host = [e for e in averages if e.self_cpu_time_total > 0
             and not e.key.startswith(profiling.SPAN_PREFIX)]
     return sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)
+
+
+def _range_copies(events) -> dict:
+    """{name: (device us, copies)} of the copies the profiler draws on the
+    device timeline for the program's ranges (``vae:*``).  It draws one only
+    for the innermost range open around a launch, so a range with ranges
+    inside (``fit.step``) counts only its own launches, and one with none
+    (``model.deconv``) all of them."""
+    drawn = {}
+    for e in events:
+        if (e.device_type == DeviceType.CUDA
+                and e.name.startswith(profiling.SPAN_PREFIX)):
+            t, n = drawn.get(e.name, (0.0, 0))
+            drawn[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    return drawn
 
 
 def _device_events(events) -> list:
